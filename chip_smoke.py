@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Smoke run of uno_tpu_torch on one NVIDIA H100: the quickest proof that
+the port builds and runs on the card.
+
+    python3 chip_smoke.py [--out results.json] [--profile]
+
+Phases, each with its own wall-clock budget (a phase that fails or
+overruns raises, and the script exits non-zero):
+  1. device       a CUDA card is there; prints nvidia-smi's name and power limit
+  2. build        nvcc builds csrc/ldlt.cu (timed)
+  3. kernels      the LDL^T kernel against its plain PyTorch version on the
+                  card, at dims 12/40/132/260/516 in float32 and float64,
+                  and at the main path's shape; times both with CUDA events
+  4. main path    the flagship family (n=8, m=2) at B=65,536 through
+                  solve_batch, with the launch count of the kernel; the first
+                  64 instances again on the CPU through the plain versions
+  5. single       solve(hs015, preset="ipopt") on the card
+  6. summary      the {"kernels": [...]} line, then the last line
+                  {"ok": true, "device": {...}}
+With --profile, the main path runs once more under torch.profiler, which
+prints where its time goes (device busy share, kernels and host operators
+by time).
+
+Imports torch, numpy and uno_tpu_torch only.  Starts no child process
+other than nvidia-smi and nvcc, and no thread.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import subprocess
+import time
+
+import numpy as np
+
+# seconds per phase; the whole script stays well inside 20 minutes
+BUDGETS = {"device": 60, "build": 320, "kernels": 240, "main_path": 360,
+           "single": 120, "profile": 300}
+KERNEL_DIMS = (12, 40, 132, 260, 516)
+# instances per dim in the kernel phase: the main path's batch at dim 12,
+# then about two instances per SM for the large dims
+KERNEL_BATCH = {12: 65536, 40: 4096, 132: 512, 260: 264, 516: 132}
+# the kernel against its plain version on the same inputs, entry by entry:
+# |L_k - L_p| <= FACTOR_RTOL * max(|L_p|, 1), and the same for d.  On these
+# matrices a float32 factorization lies up to 4.1e-6 from the float64 one
+# (the plain versions on the CPU, dim 12, 65,536 instances), so two float32
+# ones lie within about 1e-5 of each other.  Every float64 row also checks
+# that float32 factors fail the float64 limit.
+FACTOR_RTOL = {"float32": 5e-5, "float64": 1e-11}
+# componentwise backward error of every instance, entry by entry:
+# |L D L^T - A| <= BACKWARD_LIMIT * dim * eps * (|L| |D| |L^T|).  Unpivoted
+# elimination meets it with dim * eps / 2 (Higham, Accuracy and Stability of
+# Numerical Algorithms, thm 9.3); the plain versions reach at most 0.24 of
+# dim * eps here
+BACKWARD_LIMIT = 1.0
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s; float32 outside
+# the tensor cores and float64 on the tensor cores, FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+MAIN_BATCH = 65536
+MAIN_KKT_DIM = 12
+MAIN_MAX_ITERATIONS = 100
+CPU_RERUN = 64
+# the CPU rerun of the first instances: statuses and iterations equal, x
+# within X_ATOL.  The card and the CPU factor in float32 with different
+# instruction sequences (fused multiply-adds, reduction orders), but the
+# float64 refinement makes the steps agree: every one of the 64 instances
+# took the same iterations, with x within 2.2e-14
+ITERATION_SLACK = 0
+X_ATOL = 1e-10
+HS015_ITERATIONS = 17
+HS015_OPTIMUM = 306.5
+
+
+class PhaseTimeout(Exception):
+    pass
+
+
+def _on_alarm(signum, frame):
+    raise PhaseTimeout("phase budget exhausted")
+
+
+def run_phase(name, fn, *args, **kwargs):
+    """Run one phase under its budget; raises if it fails or overruns."""
+    budget = BUDGETS[name]
+    print(f"== {name} (budget {budget} s)", flush=True)
+    old = signal.signal(signal.SIGALRM, _on_alarm)
+    signal.alarm(budget)
+    t0 = time.monotonic()
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    took = time.monotonic() - t0
+    print(f"== {name} done in {took:.3f} s", flush=True)
+    if took > budget:
+        raise PhaseTimeout(f"phase {name} took {took:.1f} s > {budget} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+# ---------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: no card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    line = smi.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return {"kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "nvidia_smi": line,
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from uno_tpu_torch.linalg import cuda_ldlt
+    t0 = time.monotonic()
+    path = cuda_ldlt.build()
+    seconds = time.monotonic() - t0
+    print(f"built {path.name} in {seconds:.2f} s", flush=True)
+    for line in cuda_ldlt.build_log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print("  " + line.strip(), flush=True)
+    return {"seconds": seconds, "library": path.name}
+
+
+# ---------------------------------------------------------------------------
+# 3. the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def barrier_kkt_like(batch, dim, seed):
+    """Seeded barrier-KKT-like matrices (after tests/test_ldlt.py's
+    _barrier_kkt_like): H + Sigma with diagonal 1..1e3 and small symmetric
+    coupling, a Gaussian J, a -eps dual block of 1e-8..1e-2.  Every second
+    instance has a non-convex H (30% of its diagonal negated, those columns
+    of J zero), the case the inertia correction exists for.  All are
+    indefinite; returns (K, expected (num_pos, num_neg))."""
+    rng = np.random.default_rng(seed)
+    m = max(1, dim // 6) if dim > 1 else 0
+    n = dim - m
+    H = rng.standard_normal((batch, n, n)) * (0.1 / np.sqrt(n))
+    H = (H + np.swapaxes(H, 1, 2)) / 2
+    diag = 10.0 ** rng.uniform(0, 3, (batch, n))
+    neg = (rng.uniform(size=(batch, n)) < 0.3) & (np.arange(batch) % 2 == 1)[:, None]
+    idx = np.arange(n)
+    H[:, idx, idx] = np.where(neg, -diag, diag)
+    J = rng.standard_normal((batch, m, n))
+    J = np.where(neg[:, None, :], 0.0, J)
+    K = np.zeros((batch, dim, dim))
+    K[:, :n, :n] = H
+    K[:, n:, :n] = J
+    K[:, :n, n:] = np.swapaxes(J, 1, 2)
+    K[:, np.arange(n, dim), np.arange(n, dim)] = -(10.0 ** rng.uniform(-8, -2, (batch, m)))
+    num_neg = neg.sum(axis=1) + m
+    return K, np.stack([dim - num_neg, num_neg], axis=1)
+
+
+def _timed_calls(call, groups, calls):
+    """Median over `groups` of the mean ms of `calls` back-to-back calls
+    between two CUDA events."""
+    import torch
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def _calls_for(call, target_ms):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    call()
+    torch.cuda.synchronize()
+    first_ms = (time.monotonic() - t0) * 1e3
+    return int(min(50, max(1, target_ms // max(first_ms, 1e-3))))
+
+
+def time_ms(fn, groups=3, target_ms=50.0):
+    """The card's time for one call of fn, in ms: fn is captured once in a
+    CUDA graph (after a warm-up on a side stream) and its replays are timed
+    between CUDA events, so the host's time to issue the launches does not
+    count; median of `groups` groups of back-to-back replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    try:
+        return _timed_calls(graph.replay, groups, _calls_for(graph.replay, target_ms))
+    finally:
+        del graph
+
+
+def eager_ms(fn, groups=3, target_ms=50.0):
+    """ms per eager call of fn, host issue time included (CUDA events around
+    back-to-back calls)."""
+    fn()
+    return _timed_calls(fn, groups, _calls_for(fn, target_ms))
+
+
+def bound_ms(batch, dim, itemsize, dtype_name):
+    """The least time for the work: what the function must move over the
+    memory rate (the lower triangle of A read, dim(dim+1)/2 elements; the
+    dense L and d that the API returns written, dim^2 + dim), against
+    batch*dim^3/3 flops over the peak rate; the larger of the two."""
+    bytes_moved = batch * (dim * (dim + 1) // 2 + dim * dim + dim) * itemsize
+    flops = batch * dim ** 3 / 3.0
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def factor_gap(fk, fp):
+    """max over every entry of L and d of |kernel - plain| / max(|plain|, 1)."""
+    return max(float(((a - b).abs() / b.abs().clamp(min=1.0)).amax())
+               for a, b in ((fk.L, fp.L), (fk.d, fp.d)))
+
+
+def backward_error(fac, A):
+    """max over instances and entries of |L D L^T - A| / (dim * eps *
+    |L| |D| |L^T|), in float64, with eps that of A's dtype: at most
+    BACKWARD_LIMIT for a sound factorization."""
+    import torch
+    L, d, A64 = fac.L.double(), fac.d.double(), A.double()
+    R = (L * d[:, None, :]) @ L.transpose(1, 2) - A64
+    S = (L.abs() * d.abs()[:, None, :]) @ L.abs().transpose(1, 2)
+    S = S * (A.shape[-1] * torch.finfo(A.dtype).eps)
+    return float((R.abs() / S.clamp(min=torch.finfo(torch.float64).tiny)).amax())
+
+
+def check_kernel(batch, dim, dtype_name, seed=0, expected=None, K=None):
+    """Run the kernel and its plain version on the same card tensors;
+    raise unless each meets the backward-error limit, the two agree entry
+    by entry within FACTOR_RTOL, and they give the same inertia.  Returns
+    the measurements: `ms` is the kernel's launch alone, `inertia_ms` the
+    inertia count from d that the wrapper adds in torch."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.linalg.ldlt import _inertia, plain_factorizer
+
+    dtype = getattr(torch, dtype_name)
+    if K is None:
+        K, expected = barrier_kkt_like(batch, dim, seed)
+    A = torch.as_tensor(K, dtype=dtype, device="cuda").contiguous()
+    plain = plain_factorizer(dim)
+    launches_before = cuda_ldlt.launches
+    fk = cuda_ldlt.ldlt_factor_cuda(A)
+    fp = plain(A)
+    torch.cuda.synchronize()
+    tag = f"dim {dim} {dtype_name}"
+    row = {"batch": batch, "dim": dim, "dtype": dtype_name}
+    for name, fac in (("backward_error", fk), ("plain_backward_error", fp)):
+        row[name] = backward_error(fac, A)
+        if not row[name] <= BACKWARD_LIMIT:
+            raise AssertionError(f"{tag}: {name} {row[name]:.3e} > {BACKWARD_LIMIT}")
+    row["factor_gap"] = factor_gap(fk, fp)
+    if not row["factor_gap"] <= FACTOR_RTOL[dtype_name]:
+        raise AssertionError(f"{tag}: kernel and plain L, d differ by "
+                             f"{row['factor_gap']:.3e} > {FACTOR_RTOL[dtype_name]:g}")
+    upper = torch.triu(fk.L, 1).abs().amax()
+    unit = (torch.diagonal(fk.L, dim1=1, dim2=2) - 1).abs().amax()
+    if float(upper) != 0.0 or float(unit) != 0.0:
+        raise AssertionError(f"kernel {tag}: L is not unit lower triangular")
+    for name in ("num_pos", "num_neg", "num_zero"):
+        if not torch.equal(getattr(fk, name), getattr(fp, name)):
+            raise AssertionError(f"{tag}: {name} differs between kernel and "
+                                 "plain version")
+    if expected is not None:
+        got = torch.stack([fk.num_pos, fk.num_neg], 1).cpu().numpy()
+        if not np.array_equal(got, expected):
+            raise AssertionError(f"{tag}: inertia != expected")
+    if dtype == torch.float64:
+        # the float64 limits reject float32 factors of the same matrices
+        f32 = cuda_ldlt.ldlt_factor_cuda(A.float())
+        f32 = f32._replace(L=f32.L.double(), d=f32.d.double())
+        row["f32_factor_gap"] = factor_gap(f32, fp)
+        row["f32_backward_error"] = backward_error(f32, A)
+        if not (row["f32_factor_gap"] > FACTOR_RTOL["float64"]
+                and row["f32_backward_error"] > BACKWARD_LIMIT):
+            raise AssertionError(f"{tag}: the float64 limits pass float32 factors")
+    row["max_abs_err"] = float(torch.maximum((fk.L - fp.L).abs().amax(),
+                                             (fk.d - fp.d).abs().amax()))
+    L, d = torch.empty_like(A), torch.empty((batch, dim), dtype=dtype, device="cuda")
+    row["ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d))
+    row["inertia_ms"] = time_ms(lambda: _inertia(d, 1e-32))
+    row["plain_ms"] = time_ms(lambda: plain(A))
+    row["eager_ms"] = eager_ms(lambda: cuda_ldlt.ldlt_factor_cuda(A))
+    cuda_ldlt.launches = launches_before    # comparison launches do not count
+    row["bound_ms"], row["bound_by"] = bound_ms(batch, dim, A.element_size(), dtype_name)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_kernels():
+    rows = []
+    for dtype_name in ("float32", "float64"):
+        for dim in KERNEL_DIMS:
+            rows.append(check_kernel(KERNEL_BATCH[dim], dim, dtype_name))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 4. the main path
+# ---------------------------------------------------------------------------
+
+def main_path_options(max_iterations=MAIN_MAX_ITERATIONS):
+    """uno_tpu's bench options for the flagship (bench.py:194)."""
+    from uno_tpu_torch.options import preset
+    return preset("ipopt", scale_functions=False, kkt_dtype="float32",
+                  LS_batch_candidates=1, filter_capacity=8,
+                  max_iterations=max_iterations)
+
+
+def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN):
+    """Solve the flagship batch on `device` through solve_batch, then the
+    first `rerun` instances on the CPU; raise unless the results are finite,
+    nearly all solved, and agree with the CPU run."""
+    import torch
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.model.transforms import reformulate_for_interior_point
+
+    nlp, x0, params = flagship(batch)
+    opts = main_path_options()
+    prob = reformulate_for_interior_point(nlp, opts.tolerance)
+    kkt_dim = prob.n + prob.m           # 8 variables + 2 slacks + 2 rows
+    if kkt_dim != MAIN_KKT_DIM:
+        raise AssertionError(f"flagship KKT dim {kkt_dim} != {MAIN_KKT_DIM}")
+    cuda_ldlt.launches = 0
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = cuda_ldlt.launches
+    out = {"batch": batch, "kkt_dim": kkt_dim, "solved": res.num_solved,
+           "mean_iterations": float(np.mean(res.iterations)),
+           "max_iterations": int(np.max(res.iterations)),
+           "wall_s": wall, "solves_per_s": batch / wall,
+           "launches": launches,
+           "launches_per_iteration": launches / max(int(np.max(res.iterations)), 1)}
+    print(json.dumps(out), flush=True)
+    if torch.device(device).type == "cuda" and launches <= 0:
+        raise AssertionError("the main path launched the LDL^T kernel 0 times")
+    if res.x.shape != (batch, nlp.n) or not np.all(np.isfinite(res.x)) \
+            or not np.all(np.isfinite(res.objective)):
+        raise AssertionError("main path: non-finite or misshapen solutions")
+    if res.num_solved < 0.999 * batch:
+        raise AssertionError(f"main path: only {res.num_solved}/{batch} solved")
+
+    k = min(rerun, batch)
+    ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts,
+                                    device="cpu")
+    if not np.array_equal(ref.status, res.status[:k]):
+        raise AssertionError("main path: status differs from the CPU run")
+    diff = np.abs(ref.iterations - res.iterations[:k])
+    if diff.max() > ITERATION_SLACK:
+        raise AssertionError(f"main path: iterations differ by {diff.max()} "
+                             "from the CPU run")
+    x_err = float(np.max(np.abs(ref.x - res.x[:k])))
+    if not x_err <= X_ATOL:
+        raise AssertionError(f"main path: x differs by {x_err:.3e} from the CPU run")
+    out.update(cpu_rerun=k, iterations_equal=int(np.sum(diff == 0)),
+               x_max_abs_diff=x_err)
+    print(json.dumps({"cpu_rerun": k, "iterations_equal": out["iterations_equal"],
+                      "x_max_abs_diff": x_err}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. the single instance
+# ---------------------------------------------------------------------------
+
+def phase_single(device="cuda"):
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import hs015
+
+    cuda_ldlt.launches = 0
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve(hs015(), preset="ipopt", device=device)
+    out = {"status": res.status, "objective": res.objective,
+           "iterations": res.iterations, "wall_s": time.monotonic() - t0,
+           "launches": cuda_ldlt.launches}
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches"] <= 0:
+        raise AssertionError("hs015 launched the LDL^T kernel 0 times")
+    if res.status != "optimal" or res.iterations != HS015_ITERATIONS \
+            or abs(res.objective - HS015_OPTIMUM) > 1e-6 * HS015_OPTIMUM:
+        raise AssertionError(f"hs015: {res}")
+    return out
+
+
+def phase_profile(batch=MAIN_BATCH, top=12):
+    """The main path once more under torch.profiler: the device's busy time
+    (the sum of its kernels' times; one stream, so they do not overlap)
+    against the wall time, and the kernels and host operators that take
+    the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import uno_tpu_torch
+    from uno_tpu_torch.model.library import flagship
+
+    nlp, x0, params = flagship(batch)
+    opts = main_path_options()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    device_rows, host_rows = [], []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if str(e.device_type).endswith("CUDA"):
+            device_rows.append((dev_us / 1e3, e.count, e.key))
+        else:
+            host_rows.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    device_rows.sort(reverse=True)
+    host_rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in device_rows)
+    out = {"batch": batch, "iterations_max": int(np.max(res.iterations)),
+           "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernel_launches": int(sum(r[1] for r in device_rows)),
+           "device_top": [{"ms": r[0], "count": r[1], "name": r[2][:90]}
+                          for r in device_rows[:top]],
+           "host_top": [{"self_ms": r[0], "count": r[1], "name": r[2][:60]}
+                        for r in host_rows[:top]]}
+    print(json.dumps(out, indent=1), flush=True)
+    if busy_ms <= 0.0:
+        raise AssertionError("the profiler saw no device time")
+    return out
+
+
+def kernel_entry(name, replaces, launches, row):
+    return {"name": name, "route": "cuda",
+            "source": "uno_tpu_torch/csrc/ldlt.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "inertia_ms": row["inertia_ms"], "eager_ms": row["eager_ms"],
+            "factor_gap": row["factor_gap"],
+            "backward_error": row["backward_error"],
+            "shape": [row["batch"], row["dim"], row["dim"]],
+            "dtype": row["dtype"]}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="also write every measurement here as JSON")
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile the main path with torch.profiler")
+    args = parser.parse_args(argv)
+
+    t_start = time.monotonic()
+    device = run_phase("device", phase_device)
+    build = run_phase("build", phase_build)
+    sweep = run_phase("kernels", phase_kernels)
+    main_path = run_phase("main_path", phase_main_path)
+    single = run_phase("single", phase_single)
+    profiled = run_phase("profile", phase_profile) if args.profile else None
+
+    # the kernel at the two paths' own shapes: the flagship's KKT (dim 12,
+    # float32) at the full batch, and hs015's (dim 6, float64) alone
+    from uno_tpu_torch.linalg import cuda_ldlt
+    saved = cuda_ldlt.launches
+    batched = check_kernel(MAIN_BATCH, MAIN_KKT_DIM, "float32", seed=1)
+    K1, expected1 = barrier_kkt_like(1, 6, seed=2)
+    single_row = check_kernel(1, 6, "float64", K=K1, expected=expected1)
+    cuda_ldlt.launches = saved
+    kernels = [
+        kernel_entry("ldlt_factor_cuda (batched path)",
+                     "uno_tpu/linalg/pallas_ldlt.py:190", main_path["launches"],
+                     batched),
+        kernel_entry("ldlt_factor_cuda (single-instance path)",
+                     "uno_tpu/linalg/pallas_ldlt.py:230", single["launches"],
+                     single_row),
+    ]
+    total = time.monotonic() - t_start
+    print(f"total {total:.1f} s", flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"device": device, "build": build, "kernel_sweep": sweep,
+                       "main_path": main_path, "single": single,
+                       "profile": profiled, "kernels": kernels,
+                       "total_s": total}, fh, indent=1)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": device["kind"],
+                                             "count": device["count"]}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,31 @@
+"""uno_tpu_torch: the PyTorch and CUDA port of uno_tpu, for one NVIDIA H100.
+
+It solves smooth nonconvex NLPs
+    min f(x)  s.t.  cL <= c(x) <= cU,  xL <= x <= xU
+with the `ipopt` preset's primal-dual interior-point method, one instance
+(`solve`) or a batch of instances of one problem (`solve_batch`).  The
+batch is an explicit leading axis with per-instance RUNNING masks;
+derivatives come from torch.func in float64; the KKT factorization is an
+unpivoted LDL^T whose pivot signs give the inertia, a hand-written CUDA
+kernel on the card (linalg/cuda_ldlt.py, csrc/ldlt.cu).
+
+Entry points run on the card ("cuda") unless the caller passes
+device="cpu"; with no card they raise.  The package imports torch and
+numpy only, never jax or uno_tpu.
+"""
+
+from uno_tpu_torch.options import Options, preset
+from uno_tpu_torch.model.nlp import NLP, nlp_from_functions
+from uno_tpu_torch.solvers.ipm import (ALGORITHMIC_ERROR, ALMOST_OPTIMAL,
+                                       INFEASIBLE_STATIONARY, MAX_ITERATIONS,
+                                       OPTIMAL, RUNNING, STATUS_NAMES,
+                                       TIME_LIMIT, UNBOUNDED, Result)
+from uno_tpu_torch.solvers.batch import BatchResult, solve_batch
+from uno_tpu_torch.api import solve
+
+__version__ = "0.1.0"
+
+__all__ = ["Options", "preset", "NLP", "nlp_from_functions", "solve",
+           "solve_batch", "Result", "BatchResult", "STATUS_NAMES", "RUNNING",
+           "OPTIMAL", "ALMOST_OPTIMAL", "INFEASIBLE_STATIONARY", "UNBOUNDED",
+           "ALGORITHMIC_ERROR", "MAX_ITERATIONS", "TIME_LIMIT", "__version__"]

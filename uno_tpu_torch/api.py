@@ -1,0 +1,106 @@
+"""Top-level solve API (the reference's Uno::solve, Uno.cpp:44-98),
+routed for the ipopt preset; counterpart of uno_tpu/api.py."""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from uno_tpu_torch.model.nlp import NLP
+from uno_tpu_torch.options import Options, preset as _preset
+from uno_tpu_torch.solvers.batch import resolve_device
+from uno_tpu_torch.solvers.ipm import Result, solve_ipm
+
+
+def _preflight(nlp: NLP):
+    """Initial-iterate screening (reference Uno.cpp:91-94): an empty bound
+    box certifies infeasibility, and non-finite f/c both at the projected x0
+    and at an interior push is an evaluation error.  Returns a Result to
+    stop with, or None to proceed."""
+    t0 = time.perf_counter()
+    x_lb, x_ub = np.asarray(nlp.x_lb), np.asarray(nlp.x_ub)
+    c_lb, c_ub = np.asarray(nlp.c_lb), np.asarray(nlp.c_ub)
+    params = None if nlp.params is None else \
+        torch.as_tensor(np.asarray(nlp.params), dtype=torch.float64)
+
+    def result(status, x, f, c):
+        viol = 0.0
+        if nlp.m:
+            c = np.asarray(c, dtype=np.float64)
+            cv = np.where(np.isfinite(c),
+                          np.maximum(np.maximum(c_lb - c, c - c_ub), 0.0), 0.0)
+            viol = float(np.max(cv, initial=0.0))
+        viol = max(viol, float(np.max(x_lb - x_ub, initial=0.0)),
+                   float(np.max(c_lb - c_ub, initial=0.0)))
+        return Result(
+            status=status, x=np.asarray(x, dtype=np.float64),
+            y=np.zeros(nlp.m), zl=np.zeros(nlp.n), zu=np.zeros(nlp.n),
+            objective=float(f), iterations=0,
+            primal_feasibility=viol, stationarity=np.inf,
+            complementarity=0.0, cpu_time=time.perf_counter() - t0,
+            num_subproblems_solved=0, num_factorizations=0,
+            num_objective_evaluations=1, num_constraint_evaluations=1)
+
+    def evaluate(x):
+        xt = torch.as_tensor(x, dtype=torch.float64)
+        f = float(nlp.f(xt, params))
+        c = (nlp.c(xt, params).detach().numpy().astype(np.float64)
+             if nlp.m else np.zeros(0))
+        return f, c
+
+    def evaluate_or_nan(x):
+        # a user function that raises at x counts as an evaluation error
+        try:
+            return evaluate(x)
+        except (ArithmeticError, ValueError, RuntimeError):
+            return np.nan, np.full(nlp.m, np.nan)
+
+    # 1. empty feasible box: some l > u
+    if (x_lb > x_ub).any() or (c_lb > c_ub).any():
+        x = np.clip(nlp.x0, np.minimum(x_lb, x_ub), np.maximum(x_lb, x_ub))
+        f, c = evaluate_or_nan(x)
+        return result("infeasible_stationary_point", x, f, c)
+
+    # 2. evaluation error at the projected x0 AND at an interior push
+    x_proj = np.clip(np.asarray(nlp.x0, dtype=np.float64), x_lb, x_ub)
+    f, c = evaluate_or_nan(x_proj)
+    if not (np.isfinite(f) and np.all(np.isfinite(c))):
+        with np.errstate(invalid="ignore"):
+            width = x_ub - x_lb
+            pl = 1e-2 * np.maximum(1.0, np.abs(np.where(np.isfinite(x_lb), x_lb, 0.0)))
+            pu = 1e-2 * np.maximum(1.0, np.abs(np.where(np.isfinite(x_ub), x_ub, 0.0)))
+            cap = np.where(np.isfinite(width), 1e-2 * np.maximum(width, 0.0), np.inf)
+            lo = np.where(np.isfinite(x_lb), x_lb + np.minimum(pl, cap), -np.inf)
+            hi = np.where(np.isfinite(x_ub), x_ub - np.minimum(pu, cap), np.inf)
+        f2, c2 = evaluate_or_nan(np.clip(x_proj, lo, hi))
+        if not (np.isfinite(f2) and np.all(np.isfinite(c2))):
+            return result("evaluation_error", x_proj, f, c)
+    return None
+
+
+def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = None,
+          callbacks=None, history=False, device="cuda", **overrides) -> Result:
+    """Solve one NLP on `device` (default "cuda"; raises when there is no
+    card).  Either pass `options`, or a `preset` name with keyword
+    overrides; the port runs the ipopt interior-point family."""
+    if options is None:
+        options = _preset(preset or "ipopt", **overrides)
+    elif overrides:
+        options = options.replace(**overrides)
+    device = resolve_device(device)
+    if options.inequality_handling_method != "primal_dual_interior_point":
+        raise NotImplementedError(
+            "the port solves the interior-point (ipopt) family; the SQP "
+            "presets are not ported yet")
+    if options.globalization_mechanism == "TR":
+        # reference: PrimalDualInteriorPointMethod.cpp:117-119
+        raise NotImplementedError(
+            "The interior-point subproblem does not support a trust "
+            "region; use globalization_mechanism='LS'")
+    early = _preflight(nlp)
+    if early is not None:
+        return early
+    return solve_ipm(nlp, options, device, callbacks=callbacks, history=history)

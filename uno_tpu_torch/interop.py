@@ -1,0 +1,52 @@
+"""Carry an IPM state between uno_tpu and the port as numpy arrays.
+
+`state_to_numpy` gives a dict keyed by the IPMState field names, the same
+names as uno_tpu's IPMState; "filter" holds the (h, phi, ub) triple and
+"params" an array or None.  `state_from_numpy` takes such a dict, with the
+batch as the leading axis of every array (a single uno_tpu state gets one
+with `arr[None]`), so that a test can start both packages from the same
+iterate."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from uno_tpu_torch.ingredients.filters import FilterState
+from uno_tpu_torch.solvers.ipm import IPMState
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        dtype = torch.bool
+    elif np.issubdtype(a.dtype, np.integer):
+        dtype = torch.int64
+    else:
+        dtype = torch.float64
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def state_from_numpy(fields: dict, device) -> IPMState:
+    values = {}
+    for name in IPMState._fields:
+        v = fields[name]
+        if name == "filter":
+            values[name] = FilterState(*(_tensor(a, device) for a in v))
+        elif name == "params" and v is None:
+            values[name] = None
+        else:
+            values[name] = _tensor(v, device)
+    return IPMState(**values)
+
+
+def state_to_numpy(state: IPMState) -> dict:
+    out = {}
+    for name, v in zip(IPMState._fields, state):
+        if name == "filter":
+            out[name] = tuple(t.cpu().numpy() for t in v)
+        elif v is None:
+            out[name] = None
+        else:
+            out[name] = v.cpu().numpy()
+    return out

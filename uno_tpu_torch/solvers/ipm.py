@@ -1,0 +1,980 @@
+"""Primal-dual interior-point solver, the `ipopt` preset path, batched.
+
+Counterpart of uno_tpu/solvers/ipm.py (reference call stack: Uno::solve,
+BacktrackingLineSearch, FeasibilityRestoration, PrimalDualInteriorPoint*,
+BarrierParameterUpdateStrategy, PrimalDualRegularization,
+WaechterFilterMethod).  One outer iteration of every instance of a batch
+runs as one call of the step:
+
+  1. AD derivatives;  2. barrier terms;  3. KKT assembly with the condensed
+  restoration elastics;  4. inertia-corrected LDL^T;  5. the f32 solve with
+  f64 refinement (kkt_dtype="float32");  6. the Waechter filter line
+  search;  7. the termination test.
+
+uno_tpu runs `vmap(while_loop)`; here the batch is the leading axis of
+every tensor, and each data-dependent loop (the outer iteration, the
+barrier update, the line search, the inertia correction) is a host loop
+capped by the option that bounds it, in which an instance that is done
+keeps its values.  The single instance is the batch of one.  Only the
+dense augmented KKT path is ported.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from uno_tpu_torch.ingredients import barrier as bar
+from uno_tpu_torch.ingredients import filters as flt
+from uno_tpu_torch.ingredients.regularization import (pick_factorizer,
+                                                      regularize_and_factor)
+from uno_tpu_torch.linalg.ldlt import ldlt_solve
+from uno_tpu_torch.model import transforms
+from uno_tpu_torch.model.nlp import NLP, vector_norm
+from uno_tpu_torch.options import Options
+from uno_tpu_torch.utils.timer import over_time_limit
+
+# status codes
+RUNNING = 0
+OPTIMAL = 1            # FEASIBLE_KKT_POINT at tight tolerance
+ALMOST_OPTIMAL = 2     # FEASIBLE_KKT_POINT at loose tolerance (15 consecutive)
+INFEASIBLE_STATIONARY = 3
+UNBOUNDED = 4
+ALGORITHMIC_ERROR = 5  # unstable regularization / LS failed
+MAX_ITERATIONS = 6
+TIME_LIMIT = 7         # reference OptimizationStatus::TIME_LIMIT
+
+STATUS_NAMES = {
+    RUNNING: "running",
+    OPTIMAL: "optimal",
+    ALMOST_OPTIMAL: "almost_optimal",
+    INFEASIBLE_STATIONARY: "infeasible_stationary_point",
+    UNBOUNDED: "unbounded",
+    ALGORITHMIC_ERROR: "algorithmic_error",
+    MAX_ITERATIONS: "iteration_limit",
+    TIME_LIMIT: "time_limit",
+}
+
+# stands in for an infinite bound; uno_tpu's value, kept so both packages
+# see the same barrier terms
+LARGE_BOUND = 1e25
+# cap of the barrier-update loop: each trip divides mu by >= 1/barrier_k_mu
+# until it reaches tolerance/barrier_update_fraction, so a few dozen trips
+# cover any mu a float64 can hold
+MAX_BARRIER_UPDATES = 500
+
+
+class IPMState(NamedTuple):
+    # primal-dual iterate (n includes slacks from homogenization), (B, .)
+    x: torch.Tensor
+    y: torch.Tensor       # optimality constraint multipliers (B, m)
+    zl: torch.Tensor      # optimality bound duals (B, n)
+    zu: torch.Tensor
+    # feasibility-phase multipliers
+    y_f: torch.Tensor
+    zl_f: torch.Tensor
+    zu_f: torch.Tensor
+    # l1 elastics (restoration phase), strictly positive placeholders in OPT
+    p: torch.Tensor       # (B, m)
+    q: torch.Tensor
+    zp: torch.Tensor
+    zq: torch.Tensor
+    # barrier, (B,)
+    mu: torch.Tensor
+    mu_backup: torch.Tensor
+    prev_delta: torch.Tensor
+    # phase machine
+    phase: torch.Tensor           # 0 = optimality, 1 = feasibility restoration
+    skip_mu_update: torch.Tensor  # bool: first iteration after entering FEAS
+    subproblem_changed: torch.Tensor
+    # globalization
+    filter: flt.FilterState
+    gs_scalar: torch.Tensor
+    x_ref: torch.Tensor           # proximal center (restoration)
+    h_ref: torch.Tensor           # reference infeasibility at phase switch
+    h_initial: torch.Tensor
+    # progress measures of the current iterate
+    h_cur: torch.Tensor
+    f_cur: torch.Tensor
+    aux_cur: torch.Tensor
+    # residuals of the current iterate
+    stat: torch.Tensor
+    stat_scaling: torch.Tensor
+    compl: torch.Tensor
+    compl_scaling: torch.Tensor
+    primal_feas: torch.Tensor
+    feas_stat: torch.Tensor
+    feas_stat_scaling: torch.Tensor
+    feas_compl: torch.Tensor
+    feas_compl_scaling: torch.Tensor
+    # bookkeeping
+    loose_count: torch.Tensor
+    iteration: torch.Tensor
+    status: torch.Tensor
+    step_norm: torch.Tensor
+    num_subproblems: torch.Tensor
+    num_factorizations: torch.Tensor
+    num_obj_evals: torch.Tensor
+    num_con_evals: torch.Tensor
+    # per-instance NLP parameters (B, ...), or None
+    params: Optional[torch.Tensor]
+
+
+@dataclass(frozen=True)
+class IPMWorkspace:
+    """Static problem data of the reformulated NLP."""
+    n: int
+    m: int
+    lb: np.ndarray
+    ub: np.ndarray
+    has_lb: np.ndarray
+    has_ub: np.ndarray
+    n_bounded: int       # |lb set| + |ub set|  (residual scalings)
+    constrained: bool
+    _cache: dict = field(default_factory=dict, init=False, compare=False,
+                         repr=False)
+
+    def bounds(self, device):
+        """(lb, ub, has_lb, has_ub) as float64 / bool tensors on `device`."""
+        device = torch.device(device)
+        out = self._cache.get(device)
+        if out is None:
+            out = self._cache[device] = (
+                torch.as_tensor(self.lb, dtype=torch.float64, device=device),
+                torch.as_tensor(self.ub, dtype=torch.float64, device=device),
+                torch.as_tensor(self.has_lb, device=device),
+                torch.as_tensor(self.has_ub, device=device))
+        return out
+
+
+def _build_workspace(prob: NLP) -> IPMWorkspace:
+    has_lb, has_ub = prob.has_x_lb, prob.has_x_ub
+    lb = np.where(has_lb, prob.x_lb, -LARGE_BOUND)
+    ub = np.where(has_ub, prob.x_ub, LARGE_BOUND)
+    return IPMWorkspace(
+        n=prob.n, m=prob.m, lb=lb, ub=ub,
+        has_lb=has_lb, has_ub=has_ub,
+        n_bounded=int(has_lb.sum() + has_ub.sum()),
+        constrained=prob.m > 0,
+    )
+
+
+def _matvec(A, x):
+    return (A @ x[..., None])[..., 0]
+
+
+def _rmatvec(A, y):
+    """A^T y for each instance."""
+    return (A.transpose(-1, -2) @ y[..., None])[..., 0]
+
+
+def _max0(v):
+    """max(0, max over the last axis): jnp.max(v, initial=0.0)."""
+    if v.shape[-1] == 0:
+        return v.new_zeros(v.shape[:-1])
+    return torch.clamp(torch.amax(v, dim=-1), min=0.0)
+
+
+def _masked_full(mask, value, like):
+    """(B, n) tensor like `like`: value where mask (n,), else +0.0."""
+    full = torch.full(mask.shape, value, dtype=like.dtype, device=like.device)
+    return torch.where(mask, full, 0.0).expand_as(like)
+
+
+def _where(cond, a, b):
+    """Per-instance select: cond (B,) against (B, ...) tensors."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+# --------------------------------------------------------------------------
+# residuals & termination  (ConstraintRelaxationStrategy.cpp:128-258)
+# --------------------------------------------------------------------------
+
+def _residuals(prob: NLP, ws: IPMWorkspace, opts: Options, x, y, zl, zu,
+               y_f, zl_f, zu_f, p, q, zp, zq, sigma, nu, params=None):
+    g = prob.objective_gradient(x, params)
+    c = prob.constraints(x, params)
+    J = prob.constraint_jacobian(x, params)
+    lbj, ubj, hlb, hub = ws.bounds(x.device)
+    rn = opts.residual_norm
+
+    # optimality stationarity: sigma*grad f - J^T y - zl - zu
+    cons_contrib = -(_rmatvec(J, y) if ws.m else torch.zeros_like(x)) - zl - zu
+    stat = vector_norm(sigma[:, None] * g + cons_contrib, rn)
+    # primal feasibility (homogenized model: all equalities at 0)
+    primal_feas = prob.constraint_violation(c, rn)
+    compl_vec = bar.bound_complementarity_error(x, zl, zu, lbj, ubj, hlb, hub)
+    compl = vector_norm(compl_vec, rn)
+
+    thr = opts.residual_scaling_threshold
+    ones = torch.ones_like(stat)
+
+    def stat_scaling_of(yv, zlv, zuv):
+        total = ws.n_bounded + ws.m
+        if total == 0:
+            return ones
+        norm1 = torch.sum(torch.abs(yv), dim=-1) + torch.sum(torch.abs(zlv), dim=-1) \
+            + torch.sum(torch.abs(zuv), dim=-1)
+        return torch.clamp(norm1 / (thr * total), min=1.0)
+
+    def compl_scaling_of(zlv, zuv):
+        if ws.n_bounded == 0:
+            return ones
+        norm1 = torch.sum(torch.abs(zlv), dim=-1) + torch.sum(torch.abs(zuv), dim=-1)
+        return torch.clamp(norm1 / (thr * ws.n_bounded), min=1.0)
+
+    stat_scaling = stat_scaling_of(y, zl, zu)
+    compl_scaling = compl_scaling_of(zl, zu)
+
+    # feasibility problem (l1 relaxed, rho=0, no proximal) residuals
+    feas_x = -(_rmatvec(J, y_f) if ws.m else torch.zeros_like(x)) - zl_f - zu_f
+    if ws.m:
+        feas_p = nu - y_f - zp
+        feas_q = nu + y_f - zq
+        feas_stat = vector_norm(torch.cat([feas_x, feas_p, feas_q], dim=-1), rn)
+        el_compl = torch.cat([torch.where(zp > 0, zp * p, 0.0),
+                              torch.where(zq > 0, zq * q, 0.0)], dim=-1)
+    else:
+        feas_stat = vector_norm(feas_x, rn)
+        el_compl = x.new_zeros((x.shape[0], 0))
+    feas_compl_vec = bar.bound_complementarity_error(x, zl_f, zu_f, lbj, ubj, hlb, hub)
+    feas_compl = vector_norm(torch.cat([feas_compl_vec, el_compl], dim=-1), rn)
+    feas_stat_scaling = stat_scaling_of(y_f, zl_f, zu_f)
+    feas_compl_scaling = compl_scaling_of(zl_f, zu_f)
+
+    return dict(stat=stat, stat_scaling=stat_scaling, compl=compl,
+                compl_scaling=compl_scaling, primal_feas=primal_feas,
+                feas_stat=feas_stat, feas_stat_scaling=feas_stat_scaling,
+                feas_compl=feas_compl, feas_compl_scaling=feas_compl_scaling)
+
+
+def _first_order_status(ws, opts, res, sigma, y_f, zl_f, zu_f, tol):
+    """IterateStatus per tolerance (check_first_order_convergence :230-258)."""
+    stationarity = res["stat"] / res["stat_scaling"] <= tol
+    primal_feas_ok = res["primal_feas"] <= tol
+    compl_ok = res["compl"] / res["compl_scaling"] <= tol
+    kkt = stationarity & primal_feas_ok & (sigma > 0) & compl_ok
+
+    feas_stat_ok = res["feas_stat"] <= tol
+    feas_compl_ok = res["feas_compl"] <= tol
+    nontrivial = (_max0(torch.abs(y_f)) > tol) | (_max0(torch.abs(zl_f + zu_f)) > tol)
+    infeas_stat = feas_stat_ok & ~primal_feas_ok & feas_compl_ok & nontrivial
+    if not ws.constrained:
+        infeas_stat = torch.zeros_like(infeas_stat)
+    return kkt, infeas_stat
+
+
+# --------------------------------------------------------------------------
+# barrier parameter update  (BarrierParameterUpdateStrategy.cpp:33-63)
+# --------------------------------------------------------------------------
+
+def _update_barrier_parameter(ws, opts, mu, x, zl, zu, p, q, zp, zq, is_feas,
+                              sigma, stat, stat_scaling, compl, compl_scaling,
+                              primal_feas):
+    lbj, ubj, hlb, hub = ws.bounds(x.device)
+    scaled_stat = stat / stat_scaling
+    pf = torch.where(sigma == 0.0, 0.0, primal_feas)
+    error0 = torch.maximum(torch.maximum(scaled_stat, pf), compl / compl_scaling)
+    tol_fraction = opts.tolerance / opts.barrier_update_fraction
+
+    def centrality(mu_n):
+        e = bar.centrality_error(x, zl, zu, lbj, ubj, hlb, hub, mu_n)
+        if ws.m:
+            # elastic complementarity enters in the feasibility phase
+            e_p = _max0(torch.where(zp > 0, torch.abs(zp * p - mu_n[:, None]), 0.0))
+            e_q = _max0(torch.where(zq > 0, torch.abs(zq * q - mu_n[:, None]), 0.0))
+            e = torch.where(is_feas, torch.maximum(e, torch.maximum(e_p, e_q)), e)
+        return e
+
+    mu_c, err = mu, error0
+    changed = torch.zeros_like(is_feas)
+    for _ in range(MAX_BARRIER_UPDATES):
+        active = (err <= opts.barrier_k_epsilon * mu_c) & (tol_fraction < mu_c)
+        if not bool(active.any()):
+            break
+        mu_n = torch.clamp(torch.minimum(opts.barrier_k_mu * mu_c,
+                                         torch.pow(mu_c, opts.barrier_theta_mu)),
+                           min=tol_fraction)
+        cent = centrality(mu_n) / compl_scaling
+        err_n = torch.maximum(torch.maximum(scaled_stat, pf), cent)
+        mu_c = torch.where(active, mu_n, mu_c)
+        err = torch.where(active, err_n, err)
+        changed = changed | active
+    return mu_c, changed
+
+
+# --------------------------------------------------------------------------
+# the solver step
+# --------------------------------------------------------------------------
+
+def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options):
+    """The batched single-outer-iteration function state -> state (dense
+    augmented KKT, Waechter filter line search)."""
+    if opts.globalization_strategy != "waechter_filter_method" \
+            or opts.filter_type != "standard":
+        raise NotImplementedError(
+            "the port's IPM takes the standard Waechter filter (the ipopt "
+            f"preset); got {opts.globalization_strategy}/{opts.filter_type}")
+    if opts.hessian_model != "exact":
+        raise NotImplementedError("the port's IPM takes hessian_model='exact'")
+    if opts.LS_batch_candidates != 1:
+        raise NotImplementedError("the port's IPM takes LS_batch_candidates=1")
+    n, m = ws.n, ws.m
+    nu = opts.l1_constraint_violation_coefficient
+    damping = opts.barrier_damping_factor
+    eps_machine = float(np.finfo(np.float64).eps)
+    kkt32 = opts.kkt_dtype == "float32"
+
+    def prox_scaling(x_ref):
+        s = torch.clamp(1.0 / torch.clamp(torch.abs(x_ref), min=1e-35), max=1.0)
+        return s * s
+
+    def progress(x, p, q, mu, is_feas, params, bounds):
+        lbj, ubj, hlb, hub = bounds
+        f_val = prob.objective(x, params)
+        c = prob.constraints(x, params)
+        h = prob.constraint_violation(c, opts.progress_norm)
+        aux = bar.barrier_auxiliary_measure(x, lbj, ubj, hlb, hub, mu, damping)
+        if m:
+            # elastics are single-lower-bounded at 0
+            ael = mu * torch.sum(-torch.log(torch.clamp(p, min=1e-35))
+                                 - torch.log(torch.clamp(q, min=1e-35))
+                                 + damping * (p + q), dim=-1)
+            aux = aux + torch.where(is_feas, ael, 0.0)
+        return h, f_val, aux
+
+    def step(s: IPMState) -> IPMState:
+        bounds = ws.bounds(s.x.device)
+        lbj, ubj, hlb, hub = bounds
+        is_feas = s.phase == 1
+        fe = is_feas[:, None]
+        sigma = (~is_feas).to(s.x.dtype)
+
+        # active multiplier set for the current phase
+        y_a = torch.where(fe, s.y_f, s.y)
+        zl_a = torch.where(fe, s.zl_f, s.zl)
+        zu_a = torch.where(fe, s.zu_f, s.zu)
+
+        # -- barrier parameter update (uses current-iterate residuals) -------
+        mu_new, mu_changed = _update_barrier_parameter(
+            ws, opts, s.mu, s.x, zl_a, zu_a, s.p, s.q, s.zp, s.zq, is_feas,
+            sigma,
+            torch.where(is_feas, s.feas_stat, s.stat),
+            torch.where(is_feas, s.feas_stat_scaling, s.stat_scaling),
+            torch.where(is_feas, s.feas_compl, s.compl),
+            torch.where(is_feas, s.feas_compl_scaling, s.compl_scaling),
+            s.primal_feas)
+        mu = torch.where(s.skip_mu_update, s.mu, mu_new)
+        mu_changed = mu_changed & ~s.skip_mu_update
+
+        # subproblem changed -> reset the filter (keep its upper bound)
+        changed = (s.subproblem_changed | mu_changed)[:, None]
+        filt = flt.FilterState(torch.where(changed, flt.BIG, s.filter.h),
+                               torch.where(changed, flt.BIG, s.filter.phi),
+                               s.filter.ub)
+
+        h_cur, f_cur, aux_cur = progress(s.x, s.p, s.q, mu, is_feas, s.params,
+                                         bounds)
+        merit_cur = f_cur + aux_cur
+
+        # -- 1. derivatives at the current x --------------------------------
+        g = prob.objective_gradient(s.x, s.params)
+        c = prob.constraints(s.x, s.params)
+        J = prob.constraint_jacobian(s.x, s.params)
+        H_lag = prob.lagrangian_hessian(s.x, y_a, sigma, s.params)
+
+        # -- 2. barrier terms (+ the restoration proximal term) -------------
+        prox_coef = torch.sqrt(mu)[:, None]
+        prox_diag = torch.where(fe, prox_coef * prox_scaling(s.x_ref), 0.0)
+        Sigma = bar.barrier_hessian_diag(s.x, zl_a, zu_a, lbj, ubj, hlb, hub)
+        H = H_lag + torch.diag_embed(prox_diag + Sigma)
+        g_bar = sigma[:, None] * g \
+            + bar.barrier_gradient(s.x, lbj, ubj, hlb, hub, mu, damping) \
+            + torch.where(fe, prox_coef * prox_scaling(s.x_ref) * (s.x - s.x_ref), 0.0)
+        rhs_x = -(g_bar - _rmatvec(J, y_a)) if m else -g_bar
+
+        # -- 3. KKT assembly with the condensed restoration elastics --------
+        if m:
+            mu_c = mu[:, None]
+            r_p = nu + damping * mu_c - mu_c / s.p - y_a
+            r_q = nu + damping * mu_c - mu_c / s.q + y_a
+            inv_sp = s.p / s.zp
+            inv_sq = s.q / s.zq
+            D_e = torch.where(fe, inv_sp + inv_sq, 0.0)
+            r_c = c + torch.where(fe, s.p - s.q, 0.0)
+            rhs_c = -r_c + torch.where(fe, inv_sp * r_p - inv_sq * r_q, 0.0)
+            rhs = torch.cat([rhs_x, rhs_c], dim=-1)
+        else:
+            rhs = rhs_x
+        eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
+
+        def assemble(delta, eps):
+            Hd = H + delta[:, None, None] * eye_n
+            if m == 0:
+                return Hd
+            dual_block = -torch.diag_embed(D_e + eps[:, None])
+            return torch.cat([torch.cat([Hd, J.transpose(-1, -2)], dim=-1),
+                              torch.cat([J, dual_block], dim=-1)], dim=-2)
+
+        # -- 4. inertia-corrected LDL^T -------------------------------------
+        dual_reg_param = torch.pow(mu, opts.barrier_regularization_exponent)
+        reg = regularize_and_factor(assemble, n, m, dual_reg_param,
+                                    s.prev_delta, opts, block=opts.ldlt_block_size)
+
+        # -- 5. solve: f32 factors + f64 refinement, or f64 throughout ------
+        if kkt32:
+            sol = ldlt_solve(reg.fac, rhs.to(torch.float32)).to(rhs.dtype)
+            K64 = assemble(reg.delta, reg.eps)
+            for _ in range(opts.kkt_refinement_steps):
+                resid = rhs - _matvec(K64, sol)
+                sol = sol + ldlt_solve(reg.fac, resid.to(torch.float32)).to(rhs.dtype)
+        else:
+            sol = ldlt_solve(reg.fac, rhs)
+        dx = sol[:, :n]
+        w = sol[:, n:]
+        dy = -w
+        kkt_failed = reg.failed  # unstable regularization -> restoration
+
+        # -- direction assembly + fraction-to-boundary ----------------------
+        dzl, dzu = bar.bound_dual_direction(s.x, dx, zl_a, zu_a, lbj, ubj, hlb, hub, mu)
+        if m:
+            dp = torch.where(fe, inv_sp * (-r_p - w), 0.0)
+            dq = torch.where(fe, inv_sq * (-r_q + w), 0.0)
+            dzp = torch.where(fe, (mu_c - dp * s.zp) / s.p - s.zp, 0.0)
+            dzq = torch.where(fe, (mu_c - dq * s.zq) / s.q - s.zq, 0.0)
+        else:
+            dp = dq = dzp = dzq = w     # (B, 0): no constraints, no elastics
+
+        tau = torch.clamp(1.0 - mu, min=opts.barrier_tau_min)
+        alpha_p = bar.primal_fraction_to_boundary(s.x, dx, lbj, ubj, hlb, hub, tau)
+        alpha_z = bar.dual_fraction_to_boundary(zl_a, zu_a, dzl, dzu, hlb, hub, tau)
+        if m:
+            # elastics: lower bound 0 on p, q; their duals zp, zq stay > 0
+            zero_m = s.p.new_zeros((m,))
+            big_m = zero_m + LARGE_BOUND
+            tm = torch.ones((m,), dtype=torch.bool, device=s.p.device)
+            fm = ~tm
+            a_pp = bar.primal_fraction_to_boundary(s.p, dp, zero_m, big_m, tm, fm, tau)
+            a_pq = bar.primal_fraction_to_boundary(s.q, dq, zero_m, big_m, tm, fm, tau)
+            a_zp = bar.primal_fraction_to_boundary(s.zp, dzp, zero_m, big_m, tm, fm, tau)
+            a_zq = bar.primal_fraction_to_boundary(s.zq, dzq, zero_m, big_m, tm, fm, tau)
+            alpha_p = torch.where(is_feas, torch.minimum(alpha_p, torch.minimum(a_pp, a_pq)), alpha_p)
+            alpha_z = torch.where(is_feas, torch.minimum(alpha_z, torch.minimum(a_zp, a_zq)), alpha_z)
+
+        ap, az = alpha_p[:, None], alpha_z[:, None]
+        dx = dx * ap
+        dy = dy * ap
+        dzl, dzu = dzl * az, dzu * az
+        dp, dq = dp * ap, dq * ap
+        dzp, dzq = dzp * az, dzq * az
+        dir_norm = _max0(torch.abs(dx))
+
+        # -- 6. backtracking line search (Waechter filter) ------------------
+        if opts.protect_actual_reduction_against_roundoff:
+            roundoff = 10.0 * eps_machine * torch.abs(merit_cur)
+        else:
+            roundoff = torch.zeros_like(merit_cur)
+        Jdx = _matvec(J, dx)
+        gdx = torch.sum(g * dx, dim=-1)
+        bdd_h = bar.barrier_directional_derivative(s.x, dx, lbj, ubj, hlb, hub,
+                                                   mu, damping)
+        if m:
+            el_dd_h = torch.sum((-mu_c / s.p + damping * mu_c) * dp
+                                + (-mu_c / s.q + damping * mu_c) * dq, dim=-1)
+            bdd_h = bdd_h + torch.where(is_feas, el_dd_h, 0.0)
+        prim_step = dir_norm
+        if m:
+            prim_step = torch.maximum(prim_step, torch.maximum(
+                _max0(torch.abs(dp)), _max0(torch.abs(dq))))
+
+        def ls_trial(alpha):
+            a = alpha[:, None]
+            dual_a = a if opts.LS_scale_duals_with_step_length else 1.0
+            x_t = torch.clamp(s.x + a * dx, lbj, ubj)
+            y_t = y_a + dual_a * dy
+            zl_t, zu_t = zl_a + dzl, zu_a + dzu
+            p_t = s.p + a * dp
+            q_t = s.q + a * dq
+            zp_t, zq_t = s.zp + dzp, s.zq + dzq
+            # postprocess: k_sigma rescale (PrimalDualInteriorPointProblem:348)
+            zl_t, zu_t = bar.k_sigma_rescale(x_t, zl_t, zu_t, lbj, ubj, hlb, hub,
+                                             mu, opts.barrier_k_sigma)
+            if m:
+                ks = opts.barrier_k_sigma
+                coef = mu_c / torch.clamp(p_t, min=1e-35)
+                zp_t = torch.where(fe, torch.clamp(zp_t, coef / ks, coef * ks), zp_t)
+                coef = mu_c / torch.clamp(q_t, min=1e-35)
+                zq_t = torch.where(fe, torch.clamp(zq_t, coef / ks, coef * ks), zq_t)
+            h_t, f_t, aux_t = progress(x_t, p_t, q_t, mu, is_feas, s.params, bounds)
+            finite = torch.isfinite(f_t) & torch.isfinite(h_t) & torch.isfinite(aux_t)
+
+            # predicted reductions at step length alpha
+            c_lin = c + a * Jdx
+            pred_h = h_cur - prob.constraint_violation(c_lin, opts.progress_norm)
+            pred_obj = alpha * (-gdx)  # evaluated at multiplier 1
+            pred_aux = alpha * (-bdd_h)
+
+            merit_t = f_t + aux_t
+            dec = flt.waechter_is_acceptable(
+                filt, h_cur, merit_cur, h_t, merit_t, pred_obj + pred_aux,
+                s.h_initial, opts, roundoff)
+            accept_feas = flt.feasibility_armijo_acceptable(
+                h_cur, aux_cur, h_t, aux_t, pred_h, pred_aux, opts)
+            accept = torch.where(is_feas, accept_feas, dec.accept) & finite
+            # a pure dual-correction step (no primal move, x AND elastics)
+            # is accepted to pick up the fresh multipliers
+            # (ConstraintRelaxationStrategy.cpp:110-115); 1e-10 over the
+            # f32-factorization solve dust
+            accept = accept | (prim_step <= 1e-10)
+            augment = dec.augment & ~is_feas
+            trial = (x_t, y_t, zl_t, zu_t, p_t, q_t, zp_t, zq_t, h_t, f_t, aux_t)
+            return accept, trial, augment
+
+        alpha = torch.ones_like(mu)
+        accepted = torch.zeros_like(is_feas)
+        ls_failed = torch.zeros_like(is_feas)
+        ls_iters = torch.zeros_like(s.iteration)
+        trial = (s.x, y_a, zl_a, zu_a, s.p, s.q, s.zp, s.zq, h_cur, f_cur, aux_cur)
+        augment = torch.zeros_like(is_feas)
+        for _ in range(opts.max_line_search_iterations):
+            active = ~accepted & ~ls_failed & (ls_iters < opts.max_line_search_iterations)
+            if not bool(active.any()):
+                break
+            acc, tr, aug = ls_trial(alpha)
+            fail = ~acc & (alpha < opts.LS_min_step_length)
+            take = active & acc
+            alpha = torch.where(active & ~acc & ~fail,
+                                alpha * opts.LS_backtracking_ratio, alpha)
+            trial = tuple(_where(take, b, a_) for a_, b in zip(trial, tr))
+            augment = torch.where(take, aug, augment)
+            accepted = torch.where(active, acc, accepted)
+            ls_failed = torch.where(active, fail, ls_failed)
+            ls_iters = ls_iters + active.to(ls_iters.dtype)
+        # a failed KKT solve invalidates the direction entirely
+        accepted = accepted & ~kkt_failed
+        ls_failed = ls_failed | kkt_failed | \
+            (~accepted & ~kkt_failed & (ls_iters >= opts.max_line_search_iterations))
+
+        (x_t, yv_t, zl_t, zu_t, p_t, q_t, zp_t, zq_t, h_t, f_t, aux_t) = trial
+
+        # deferred filter update (once, not per LS trial)
+        filt = flt.filter_select(augment & accepted, filt,
+                                 flt.filter_add(filt, h_cur, merit_cur, opts.filter_beta))
+
+        # -- commit the trial iterate (or keep current on failure) ----------
+        acc_opt = accepted & ~is_feas
+        acc_feas = accepted & is_feas
+        x_n = _where(accepted, x_t, s.x)
+        y_n = _where(acc_opt, yv_t, s.y)
+        zl_n = _where(acc_opt, zl_t, s.zl)
+        zu_n = _where(acc_opt, zu_t, s.zu)
+        y_f_n = _where(acc_feas, yv_t, s.y_f)
+        zl_f_n = _where(acc_feas, zl_t, s.zl_f)
+        zu_f_n = _where(acc_feas, zu_t, s.zu_f)
+        p_n = _where(accepted, p_t, s.p)
+        q_n = _where(accepted, q_t, s.q)
+        zp_n = _where(accepted, zp_t, s.zp)
+        zq_n = _where(accepted, zq_t, s.zq)
+        h_n = torch.where(accepted, h_t, h_cur)
+        f_n = torch.where(accepted, f_t, f_cur)
+        aux_n = torch.where(accepted, aux_t, aux_cur)
+
+        # -- phase transitions ----------------------------------------------
+        # (a) restoration -> optimality (WaechterFilterMethod.cpp:85-88), or
+        # feasible to tolerance
+        merit_n = f_n + aux_n
+        inf_reduced = \
+            (h_n <= opts.filter_sufficient_infeasibility_decrease_factor * s.h_ref) & \
+            flt.filter_acceptable(filt, h_n, merit_n, opts.filter_beta, opts.filter_gamma)
+        inf_reduced = inf_reduced | (h_n <= opts.tolerance)
+        back_ok = accepted & is_feas & inf_reduced
+        # (b) optimality -> restoration: LS failure or unstable KKT
+        if ws.constrained:
+            to_feas = ls_failed & ~is_feas
+            hard_fail = ls_failed & is_feas
+        else:
+            to_feas = torch.zeros_like(ls_failed)
+            hard_fail = ls_failed
+
+        # apply (a): the filter records the current point, then mu is restored
+        filt = flt.filter_select(back_ok, filt,
+                                 flt.filter_add(filt, h_cur, merit_cur, opts.filter_beta))
+        phase_n = torch.where(back_ok, 0, s.phase)
+        mu_n = torch.where(back_ok, s.mu_backup, mu)
+
+        # multiplier safeguard on restoration exit (uno_tpu's reset of
+        # oversized multipliers)
+        if m:
+            y_over = _max0(torch.abs(y_n)) > opts.least_square_multiplier_max_norm
+            y_n = _where(back_ok & y_over, torch.zeros_like(y_n), y_n)
+
+        # apply (b): enter restoration at the (unchanged) current iterate
+        mu_enter = torch.maximum(mu, s.primal_feas)
+        phase_n = torch.where(to_feas, 1, phase_n)
+        mu_backup_n = torch.where(to_feas, mu, s.mu_backup)
+        mu_n = torch.where(to_feas, mu_enter, mu_n)
+        x_ref_n = _where(to_feas, x_n, s.x_ref)
+        h_ref_n = torch.where(to_feas, h_n, s.h_ref)
+        if m:
+            # elastic init p = q = mu/rho, duals = rho (uno_tpu's choice)
+            p_init = torch.ones_like(p_n) * (mu_enter / nu)[:, None]
+            p_n = _where(to_feas, p_init, p_n)
+            q_n = _where(to_feas, p_init, q_n)
+            zp_n = _where(to_feas, torch.full_like(zp_n, nu), zp_n)
+            zq_n = _where(to_feas, torch.full_like(zq_n, nu), zq_n)
+        zl_f_n = _where(to_feas, _masked_full(hlb, opts.barrier_default_multiplier,
+                                              zl_f_n), zl_f_n)
+        zu_f_n = _where(to_feas, _masked_full(hub, -opts.barrier_default_multiplier,
+                                              zu_f_n), zu_f_n)
+        filt = flt.filter_select(to_feas, filt,
+                                 flt.filter_add(filt, h_cur, merit_cur, opts.filter_beta))
+
+        changed_next = back_ok | to_feas
+        # on an optimality-phase LS failure the termination test runs with
+        # the objective multiplier still 1 (uno_tpu's sigma_check)
+        sigma_check = torch.where(to_feas | (phase_n != 1), 1.0, 0.0).to(s.x.dtype)
+
+        # -- residuals at the new iterate, with the new phase's multiplier --
+        res = _residuals(prob, ws, opts, x_n, y_n, zl_n, zu_n,
+                         y_f_n, zl_f_n, zu_f_n, p_n, q_n, zp_n, zq_n,
+                         sigma_check, nu, s.params)
+
+        # -- 7. termination ---------------------------------------------------
+        kkt_tight, infeas_tight = _first_order_status(
+            ws, opts, res, sigma_check, y_f_n, zl_f_n, zu_f_n, opts.tolerance)
+        kkt_loose, infeas_loose = _first_order_status(
+            ws, opts, res, sigma_check, y_f_n, zl_f_n, zu_f_n, opts.loose_tolerance)
+
+        status = torch.full_like(s.status, RUNNING)
+        unbounded = f_n < opts.unbounded_objective_threshold
+        loose_any = (kkt_loose | infeas_loose) & (opts.loose_tolerance > opts.tolerance)
+        loose_count = torch.where(loose_any, s.loose_count + 1, 0)
+        loose_hit = loose_count >= opts.loose_tolerance_consecutive_iteration_threshold
+
+        status = torch.where(loose_hit & kkt_loose, ALMOST_OPTIMAL, status)
+        status = torch.where(loose_hit & infeas_loose & ~kkt_loose, INFEASIBLE_STATIONARY, status)
+        status = torch.where(infeas_tight, INFEASIBLE_STATIONARY, status)
+        status = torch.where(kkt_tight, OPTIMAL, status)
+        status = torch.where(unbounded, UNBOUNDED, status)
+        status = torch.where(hard_fail, ALGORITHMIC_ERROR, status)
+        iteration = s.iteration + 1
+        status = torch.where((status == RUNNING) & (iteration >= opts.max_iterations),
+                             MAX_ITERATIONS, status)
+
+        return IPMState(
+            x=x_n, y=y_n, zl=zl_n, zu=zu_n,
+            y_f=y_f_n, zl_f=zl_f_n, zu_f=zu_f_n,
+            p=p_n, q=q_n, zp=zp_n, zq=zq_n,
+            mu=mu_n, mu_backup=mu_backup_n, prev_delta=reg.prev_delta,
+            phase=phase_n,
+            skip_mu_update=to_feas,
+            subproblem_changed=changed_next,
+            filter=filt, gs_scalar=s.gs_scalar,
+            x_ref=x_ref_n, h_ref=h_ref_n, h_initial=s.h_initial,
+            h_cur=h_n, f_cur=f_n, aux_cur=aux_n,
+            stat=res["stat"], stat_scaling=res["stat_scaling"],
+            compl=res["compl"], compl_scaling=res["compl_scaling"],
+            primal_feas=res["primal_feas"],
+            feas_stat=res["feas_stat"], feas_stat_scaling=res["feas_stat_scaling"],
+            feas_compl=res["feas_compl"], feas_compl_scaling=res["feas_compl_scaling"],
+            loose_count=loose_count, iteration=iteration, status=status,
+            step_norm=alpha * dir_norm,
+            num_subproblems=s.num_subproblems + 1,
+            num_factorizations=s.num_factorizations + reg.attempts,
+            num_obj_evals=s.num_obj_evals + ls_iters + 1,
+            num_con_evals=s.num_con_evals + ls_iters + 1,
+            params=s.params,
+        )
+
+    return step
+
+
+def make_initial_state(prob: NLP, ws: IPMWorkspace, opts: Options,
+                       x0: torch.Tensor, params=None) -> IPMState:
+    """generate_initial_iterate (PrimalDualInteriorPointMethod.cpp:64-108)
+    for a batch: interior push of the primals x0 (B, n), slack init from
+    c(x), default bound duals, least-square constraint multipliers."""
+    n, m = ws.n, ws.m
+    B, dev, dt = x0.shape[0], x0.device, x0.dtype
+    lbj, ubj, hlb, hub = ws.bounds(dev)
+    k1 = opts.barrier_push_variable_to_interior_k1
+    k2 = opts.barrier_push_variable_to_interior_k2
+
+    x = bar.push_to_interior(x0, lbj, ubj, k1, k2)
+
+    # slacks <- interior push of the model constraint values c_i(x)
+    if prob.slack_of_constraint is not None and m:
+        cvals = prob.constraints(x, params)
+        for ci, si in enumerate(prob.slack_of_constraint.tolist()):
+            if si >= 0:
+                raw = cvals[:, ci] + x[:, si]   # c_tilde + s == c_model - shift
+                x = x.clone()
+                x[:, si] = bar.push_to_interior(raw, lbj[si], ubj[si], k1, k2)
+
+    zeros_n = x.new_zeros((B, n))
+    zl = _masked_full(hlb, opts.barrier_default_multiplier, zeros_n).clone()
+    zu = _masked_full(hub, -opts.barrier_default_multiplier, zeros_n).clone()
+
+    # least-square multipliers (Preprocessing.cpp:17-75):
+    # solve [I J^T; J 0][r; y] = [g - zl - zu; 0], keep y if ||y||inf <= 1e3
+    y = x.new_zeros((B, m))
+    if m:
+        g = prob.objective_gradient(x, params)
+        J = prob.constraint_jacobian(x, params)
+        eye = torch.eye(n, dtype=dt, device=dev).expand(B, n, n)
+        K = torch.cat([torch.cat([eye, J.transpose(-1, -2)], dim=-1),
+                       torch.cat([J, x.new_zeros((B, m, m))], dim=-1)], dim=-2)
+        rhs = torch.cat([g - zl - zu, x.new_zeros((B, m))], dim=-1)
+        # an initialization heuristic: factor in the KKT dtype
+        ls_dt = torch.float32 if opts.kkt_dtype == "float32" else dt
+        fac = pick_factorizer(n + m, opts.ldlt_block_size)(K.to(ls_dt).contiguous())
+        sol = ldlt_solve(fac, rhs.to(ls_dt)).to(dt)
+        y_try = sol[:, n:]
+        ok = (_max0(torch.abs(y_try)) <= opts.least_square_multiplier_max_norm) \
+            & torch.all(torch.isfinite(y_try), dim=-1) & (fac.num_zero == 0)
+        y = _where(ok, y_try, torch.zeros_like(y_try))
+
+    mu0 = x.new_full((B,), opts.barrier_initial_parameter)
+    ones_m = x.new_ones((B, m))
+    zeros_m = x.new_zeros((B, m))
+    res = _residuals(prob, ws, opts, x, y, zl, zu, zeros_m, zeros_n, zeros_n,
+                     ones_m, ones_m, ones_m, ones_m, x.new_ones((B,)),
+                     opts.l1_constraint_violation_coefficient, params)
+
+    c = prob.constraints(x, params)
+    h0 = prob.constraint_violation(c, opts.progress_norm)
+    f0 = prob.objective(x, params)
+    aux0 = bar.barrier_auxiliary_measure(x, lbj, ubj, hlb, hub, mu0,
+                                         opts.barrier_damping_factor)
+
+    filt = flt.filter_init(B, opts.filter_capacity, dtype=dt, device=dev)
+    # FilterMethod::initialize: ub = max(filter_ubd, filter_fact * h0)
+    filt = filt._replace(ub=torch.clamp(opts.filter_fact * h0, min=opts.filter_ubd))
+
+    zero_b = x.new_zeros((B,))
+    izero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    false = torch.zeros((B,), dtype=torch.bool, device=dev)
+    return IPMState(
+        x=x, y=y, zl=zl, zu=zu,
+        y_f=zeros_m, zl_f=zeros_n, zu_f=zeros_n,
+        p=ones_m, q=ones_m, zp=ones_m, zq=ones_m,
+        mu=mu0, mu_backup=mu0, prev_delta=zero_b,
+        phase=izero, skip_mu_update=false, subproblem_changed=false,
+        filter=filt, gs_scalar=zero_b, x_ref=x, h_ref=h0, h_initial=h0,
+        h_cur=h0, f_cur=f0, aux_cur=aux0,
+        stat=res["stat"], stat_scaling=res["stat_scaling"],
+        compl=res["compl"], compl_scaling=res["compl_scaling"],
+        primal_feas=res["primal_feas"],
+        feas_stat=res["feas_stat"], feas_stat_scaling=res["feas_stat_scaling"],
+        feas_compl=res["feas_compl"], feas_compl_scaling=res["feas_compl_scaling"],
+        loose_count=izero, iteration=izero, status=izero, step_norm=zero_b,
+        num_subproblems=izero, num_factorizations=izero,
+        num_obj_evals=izero, num_con_evals=izero,
+        params=params,
+    )
+
+
+def _map_state(fn, state: IPMState) -> IPMState:
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, flt.FilterState):
+            return flt.FilterState(*(fn(t) for t in v))
+        return fn(v)
+
+    return IPMState(*(one(v) for v in state))
+
+
+def take_instances(state: IPMState, idx: torch.Tensor) -> IPMState:
+    """The sub-batch of instances `idx`."""
+    return _map_state(lambda t: t.index_select(0, idx), state)
+
+
+def put_instances(state: IPMState, idx: torch.Tensor, sub: IPMState) -> IPMState:
+    """`state` with the instances `idx` replaced by `sub`."""
+    flat = [t for v in sub if v is not None
+            for t in (v if isinstance(v, flt.FilterState) else (v,))]
+    it = iter(flat)
+    return _map_state(lambda t: t.index_copy(0, idx, next(it)), state)
+
+
+def run_ipm(step, state: IPMState, opts: Options, t0: float,
+            on_iterate=None) -> IPMState:
+    """The outer loop over a batch: step the instances that are still
+    RUNNING until none is, at most `max_iterations` times (the step itself
+    stamps MAX_ITERATIONS there), with the wall-clock `time_limit` checked
+    after every iteration (reference Uno.cpp:61-78)."""
+    for _ in range(max(opts.max_iterations, 0)):
+        running = state.status == RUNNING
+        idx = torch.nonzero(running).squeeze(1)
+        if idx.numel() == 0:
+            break
+        if idx.numel() == running.numel():
+            state = step(state)
+        else:
+            state = put_instances(state, idx, step(take_instances(state, idx)))
+        if on_iterate is not None:
+            on_iterate(state)
+        if over_time_limit(t0, opts.time_limit):
+            state = state._replace(status=torch.where(
+                state.status == RUNNING, TIME_LIMIT, state.status))
+            break
+    return state
+
+
+@dataclass
+class Result:
+    """Reference Result (optimization/Result.hpp:11-29) analogue."""
+    status: str
+    x: np.ndarray
+    y: np.ndarray
+    zl: np.ndarray
+    zu: np.ndarray
+    objective: float
+    iterations: int
+    primal_feasibility: float
+    stationarity: float
+    complementarity: float
+    cpu_time: float
+    num_subproblems_solved: int
+    num_factorizations: int
+    num_objective_evaluations: int
+    num_constraint_evaluations: int
+    # per-iteration IPMState trace, populated by solve_ipm(history=True)
+    history: list | None = None
+
+    @property
+    def success(self) -> bool:
+        return self.status in ("optimal", "almost_optimal")
+
+    def __repr__(self):
+        return (f"Result(status={self.status}, f={self.objective:.8g}, "
+                f"iters={self.iterations}, feas={self.primal_feasibility:.2e}, "
+                f"stat={self.stationarity:.2e}, time={self.cpu_time:.3f}s)")
+
+
+def build_ipm(nlp: NLP, opts: Options):
+    """Setup: scaling, reformulation, workspace, step."""
+    if opts.kkt_formulation not in ("auto", "augmented") \
+            or opts.ldlt_backend == "distributed":
+        raise NotImplementedError(
+            "the port has the dense augmented KKT backend only")
+    scaled = transforms.scale_model(nlp, opts.function_scaling_threshold) \
+        if opts.scale_functions else nlp
+    prob = transforms.reformulate_for_interior_point(scaled, opts.tolerance)
+    ws = _build_workspace(prob)
+    return prob, ws, make_ipm_step(prob, ws, opts)
+
+
+def map_fixed_bound_duals(nlp_orig, y_full_scaled, zl, zu):
+    """FixedBoundsConstraintsModel::postprocess_solution parity
+    (FixedBoundsConstraintsModel.cpp:168-181): the multipliers of the
+    equality rows appended for fixed variables move back to the BOUND duals
+    of those variables — positive to zl, negative to zu."""
+    fixed_idx = np.nonzero(nlp_orig.fixed_variables)[0]
+    zl = np.asarray(zl).copy()
+    zu = np.asarray(zu).copy()
+    for k, vi in enumerate(fixed_idx):
+        row = nlp_orig.m + k
+        if row < y_full_scaled.shape[0]:
+            ym = float(y_full_scaled[row])
+            if ym > 0.0:
+                zl[vi] = ym
+            else:
+                zu[vi] = ym
+    return zl, zu
+
+
+def _params_batch(params, batch: int, device) -> Optional[torch.Tensor]:
+    if params is None:
+        return None
+    p = torch.as_tensor(np.asarray(params), dtype=torch.float64, device=device)
+    return p.expand((batch,) + tuple(p.shape)).contiguous()
+
+
+def solve_ipm(nlp: NLP, opts: Options, device, callbacks=None,
+              history=False) -> Result:
+    """One instance, as the batch of one, on `device`."""
+    t0 = time.monotonic()
+    prob, ws, step = build_ipm(nlp, opts)
+    x0 = torch.as_tensor(prob.x0, dtype=torch.float64, device=device)[None]
+    params = _params_batch(nlp.params, 1, device)
+    state0 = make_initial_state(prob, ws, opts, x0, params)
+
+    from uno_tpu_torch.utils.logger import LEVELS
+    verbose = LEVELS.index(opts.logger) >= LEVELS.index("INFO")
+    trace = [state0] if history else None
+    stats = None
+    if verbose:
+        from uno_tpu_torch.utils.statistics import Statistics
+        stats = Statistics()
+        for name, w, order in (("iter", Statistics.INT_WIDTH, 1),
+                               ("step norm", Statistics.DOUBLE_WIDTH - 5, 31),
+                               ("objective", Statistics.DOUBLE_WIDTH - 5, 100),
+                               ("primal feas", Statistics.DOUBLE_WIDTH - 4, 101),
+                               ("stationarity", Statistics.DOUBLE_WIDTH - 3, 104),
+                               ("complementarity", Statistics.DOUBLE_WIDTH, 105),
+                               ("barrier", Statistics.DOUBLE_WIDTH - 5, 8),
+                               ("phase", Statistics.INT_WIDTH, 20)):
+            stats.add_column(name, w, order)
+    cs = prob.c_scale if prob.c_scale is not None else np.ones(max(ws.m, 1))
+
+    def on_iterate(s):
+        if history:
+            trace.append(s)
+        if stats is not None:
+            stats.start_new_line()
+            stats.set("iter", int(s.iteration[0]))
+            stats.set("step norm", float(s.step_norm[0]))
+            stats.set("objective", float(s.f_cur[0]) / prob.f_scale)
+            stats.set("primal feas", float(s.primal_feas[0]))
+            stats.set("stationarity", float(s.stat[0] / s.stat_scaling[0]))
+            stats.set("complementarity", float(s.compl[0] / s.compl_scaling[0]))
+            stats.set("barrier", float(s.mu[0]))
+            stats.set("phase", "FEAS" if int(s.phase[0]) else "OPT")
+            stats.print_current_line()
+        if callbacks is not None:
+            callbacks.notify_new_primals(s.x[0, : nlp.n].cpu().numpy())
+            callbacks.notify_new_multipliers(
+                s.y[0, : nlp.m].cpu().numpy() * cs[: nlp.m] / prob.f_scale
+                if nlp.m else np.zeros(0))
+
+    hooks = history or stats is not None or callbacks is not None
+    final = run_ipm(step, state0, opts, t0, on_iterate if hooks else None)
+    if stats is not None:
+        stats.print_footer()
+    elapsed = time.monotonic() - t0
+
+    x_full = final.x[0].cpu().numpy()
+    x_orig = x_full[: nlp.n]
+    f_scale = prob.f_scale
+    y_all = final.y[0].cpu().numpy()
+    y_full = y_all * cs[: y_all.shape[0]] / f_scale
+    y = y_full[: nlp.m] if nlp.m else np.zeros(0)
+    zl_out, zu_out = map_fixed_bound_duals(
+        nlp, y_full, final.zl[0].cpu().numpy()[: nlp.n] / f_scale,
+        final.zu[0].cpu().numpy()[: nlp.n] / f_scale)
+    x_t = torch.as_tensor(x_orig, dtype=torch.float64)[None]
+    f_val = float(nlp.objective(x_t, _params_batch(nlp.params, 1, "cpu"))[0])
+    if callbacks is not None:
+        callbacks.notify_acceptable_iterate(x_orig, y, 1.0)
+    return Result(
+        status=STATUS_NAMES[int(final.status[0])],
+        x=x_orig, y=y,
+        zl=zl_out, zu=zu_out,
+        objective=f_val,
+        iterations=int(final.iteration[0]),
+        primal_feasibility=float(final.primal_feas[0]),
+        stationarity=float(final.stat[0] / final.stat_scaling[0]),
+        complementarity=float(final.compl[0] / final.compl_scaling[0]),
+        cpu_time=elapsed,
+        num_subproblems_solved=int(final.num_subproblems[0]),
+        num_factorizations=int(final.num_factorizations[0]),
+        num_objective_evaluations=int(final.num_obj_evals[0]),
+        num_constraint_evaluations=int(final.num_con_evals[0]),
+        history=trace,
+    )
