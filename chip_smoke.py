@@ -8,15 +8,23 @@ Phases, each with its own wall-clock budget (a phase that fails or
 overruns raises, and the script exits non-zero):
   1. device       a CUDA card is there; prints nvidia-smi's name and power limit
   2. build        nvcc builds csrc/ldlt.cu (timed)
-  3. kernels      the LDL^T kernel against its plain PyTorch version on the
-                  card, at dims 12/40/132/260/516 in float32 and float64,
-                  and at the main path's shape; times both with CUDA events
-  4. main path    the flagship family (n=8, m=2) at B=65,536 through
-                  solve_batch, with the launch count of the kernel; the first
+  3. kernels      the LDL^T kernels (ldlt_warp up to dim 32, ldlt_panel above)
+                  against their plain PyTorch versions on the card, at dims
+                  12 to 516 (the route edges 31/32/33/64/65 among them) in
+                  float32 and float64; times both with CUDA events, and
+                  counts the kernels a call launches
+  4. kernels_large  the same for single instances of dim 640 and 1280
+  5. main path    the flagship family (n=8, m=2) at B=65,536 through
+                  solve_batch, with the kernels' launch counts; the first
                   64 instances again on the CPU through the plain versions
-  5. single       solve(hs015, preset="ipopt") on the card
-  6. summary      the {"kernels": [...]} line, then the last line
-                  {"ok": true, "device": {...}}
+  6. n512         the flagship family at n=512 (KKT dim 516), B=132, the
+                  same way; 2 instances again on the CPU
+  7. single       solve(hs015, preset="ipopt") on the card
+  8. single_large solve() of one flagship-family instance at n=1276 (KKT
+                  dim 1280, float64), held against its closed-form optimum
+  9. summary      the {"kernels": [...]} line (each kernel's launches and
+                  wrapper calls on its path, as cuda_ldlt counted them),
+                  then the last line {"ok": true, "device": {...}}
 With --profile, the main path runs once more under torch.profiler, which
 prints where its time goes (device busy share, kernels and host operators
 by time).
@@ -36,12 +44,18 @@ import time
 import numpy as np
 
 # seconds per phase; the whole script stays well inside 20 minutes
-BUDGETS = {"device": 60, "build": 320, "kernels": 240, "main_path": 360,
-           "single": 120, "profile": 300}
-KERNEL_DIMS = (12, 40, 132, 260, 516)
+BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 180,
+           "main_path": 360, "n512": 240, "single": 120, "single_large": 180,
+           "profile": 300}
+# the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
+# end two elements into a 16-byte vector
+KERNEL_DIMS = (12, 31, 32, 33, 34, 40, 64, 65, 66, 132, 260, 516)
 # instances per dim in the kernel phase: the main path's batch at dim 12,
 # then about two instances per SM for the large dims
-KERNEL_BATCH = {12: 65536, 40: 4096, 132: 512, 260: 264, 516: 132}
+KERNEL_BATCH = {12: 65536, 31: 4096, 32: 4096, 33: 4096, 34: 4096, 40: 4096,
+                64: 2048, 65: 2048, 66: 2048, 132: 512, 260: 264, 516: 132}
+# single instances in the Pallas single-instance kernel's range
+LARGE_DIMS = (640, 1280)
 # the kernel against its plain version on the same inputs, entry by entry:
 # |L_k - L_p| <= FACTOR_RTOL * max(|L_p|, 1), and the same for d.  On these
 # matrices a float32 factorization lies up to 4.1e-6 from the float64 one
@@ -72,6 +86,27 @@ ITERATION_SLACK = 0
 X_ATOL = 1e-10
 HS015_ITERATIONS = 17
 HS015_OPTIMUM = 306.5
+# the n=512 point of the main path: bench.py's batch for KKT dim 516, every
+# instance solved; its CPU rerun allows 2 iterations and 1e-6 in x, as the
+# flagship's did before its limits were tightened
+N512 = 512
+N512_BATCH = 132
+N512_KKT_DIM = 516
+N512_RERUN = 2
+N512_ITERATION_SLACK = 2
+N512_X_ATOL = 1e-6
+# one flagship-family instance (params 0) with KKT dim 1280: min x^T Q x with
+# Q = I + 0.05 (super- and subdiagonal), s.t. sum(x) >= 1; the bounds and
+# the norm constraint are inactive at its optimum, 1 / (1^T Q^-1 1).  The
+# port's CPU solve of it, solve(flagship(1, n=1276)[0], preset="ipopt",
+# device="cpu"), takes 21 iterations and ends 2.3e-9 above that value.  The
+# card's float64 factorization sums the trailing updates in another order
+# than the CPU's, so its iterations may differ by LARGE_ITERATION_SLACK
+LARGE_N = 1276
+LARGE_KKT_DIM = 1280
+LARGE_CPU_ITERATIONS = 21
+LARGE_ITERATION_SLACK = 2
+LARGE_F_ATOL = 1e-8
 
 
 class PhaseTimeout(Exception):
@@ -224,9 +259,10 @@ def eager_ms(fn, groups=3, target_ms=50.0):
 def bound_ms(batch, dim, itemsize, dtype_name):
     """The least time for the work: what the function must move over the
     memory rate (the lower triangle of A read, dim(dim+1)/2 elements; the
-    dense L and d that the API returns written, dim^2 + dim), against
-    batch*dim^3/3 flops over the peak rate; the larger of the two."""
-    bytes_moved = batch * (dim * (dim + 1) // 2 + dim * dim + dim) * itemsize
+    dense L and d that the API returns written, dim^2 + dim, and the three
+    int64 inertia counts), against batch*dim^3/3 flops over the peak rate;
+    the larger of the two."""
+    bytes_moved = batch * ((dim * (dim + 1) // 2 + dim * dim + dim) * itemsize + 3 * 8)
     flops = batch * dim ** 3 / 3.0
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -252,26 +288,47 @@ def backward_error(fac, A):
 
 
 def check_kernel(batch, dim, dtype_name, seed=0, expected=None, K=None):
-    """Run the kernel and its plain version on the same card tensors;
+    """Run the kernels and their plain version on the same card tensors;
     raise unless each meets the backward-error limit, the two agree entry
-    by entry within FACTOR_RTOL, and they give the same inertia.  Returns
-    the measurements: `ms` is the kernel's launch alone, `inertia_ms` the
-    inertia count from d that the wrapper adds in torch."""
+    by entry within FACTOR_RTOL, they give the same inertia, and the
+    kernels' own inertia equals _inertia over their d.  Returns the
+    measurements: `ms` is the kernels' launches alone, inertia included;
+    `kernel_launches` the kernels one call launched, as the wrapper counted
+    them (it must be the plan's number).  Its launches leave the wrapper's
+    counts as they were."""
     import torch
     from uno_tpu_torch.linalg import cuda_ldlt
-    from uno_tpu_torch.linalg.ldlt import _inertia, plain_factorizer
+    from uno_tpu_torch.linalg.ldlt import plain_factorizer
 
     dtype = getattr(torch, dtype_name)
     if K is None:
         K, expected = barrier_kkt_like(batch, dim, seed)
     A = torch.as_tensor(K, dtype=dtype, device="cuda").contiguous()
     plain = plain_factorizer(dim)
-    launches_before = cuda_ldlt.launches
-    fk = cuda_ldlt.ldlt_factor_cuda(A)
+    with cuda_ldlt.uncounted():
+        before = sum(cuda_ldlt.launches.values())
+        fk = cuda_ldlt.ldlt_factor_cuda(A)
+        launched = sum(cuda_ldlt.launches.values()) - before
+        return _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected)
+
+
+def _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected):
+    """check_kernel's checks and timings of the kernels' factors fk of A,
+    of which one call launched `launched` kernels."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.linalg.ldlt import _inertia
+
+    dtype = A.dtype
     fp = plain(A)
     torch.cuda.synchronize()
     tag = f"dim {dim} {dtype_name}"
     row = {"batch": batch, "dim": dim, "dtype": dtype_name}
+    plan = cuda_ldlt.plan(batch, dim, dtype)
+    row["route"], row["kernel_launches"] = plan.route, launched
+    if launched != plan.launches:
+        raise AssertionError(f"{tag}: a call launched {launched} kernels, "
+                             f"its plan {plan.launches}")
     for name, fac in (("backward_error", fk), ("plain_backward_error", fp)):
         row[name] = backward_error(fac, A)
         if not row[name] <= BACKWARD_LIMIT:
@@ -284,7 +341,11 @@ def check_kernel(batch, dim, dtype_name, seed=0, expected=None, K=None):
     unit = (torch.diagonal(fk.L, dim1=1, dim2=2) - 1).abs().amax()
     if float(upper) != 0.0 or float(unit) != 0.0:
         raise AssertionError(f"kernel {tag}: L is not unit lower triangular")
-    for name in ("num_pos", "num_neg", "num_zero"):
+    fused = _inertia(fk.d, 1e-32)
+    for k, name in enumerate(("num_pos", "num_neg", "num_zero")):
+        if not torch.equal(getattr(fk, name), fused[k]):
+            raise AssertionError(f"{tag}: the kernel's {name} differs from "
+                                 "_inertia over its own d")
         if not torch.equal(getattr(fk, name), getattr(fp, name)):
             raise AssertionError(f"{tag}: {name} differs between kernel and "
                                  "plain version")
@@ -304,11 +365,10 @@ def check_kernel(batch, dim, dtype_name, seed=0, expected=None, K=None):
     row["max_abs_err"] = float(torch.maximum((fk.L - fp.L).abs().amax(),
                                              (fk.d - fp.d).abs().amax()))
     L, d = torch.empty_like(A), torch.empty((batch, dim), dtype=dtype, device="cuda")
-    row["ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d))
-    row["inertia_ms"] = time_ms(lambda: _inertia(d, 1e-32))
+    counts = [torch.empty(batch, dtype=torch.int64, device="cuda") for _ in range(3)]
+    row["ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts))
     row["plain_ms"] = time_ms(lambda: plain(A))
     row["eager_ms"] = eager_ms(lambda: cuda_ldlt.ldlt_factor_cuda(A))
-    cuda_ldlt.launches = launches_before    # comparison launches do not count
     row["bound_ms"], row["bound_by"] = bound_ms(batch, dim, A.element_size(), dtype_name)
     print(json.dumps(row), flush=True)
     return row
@@ -320,6 +380,11 @@ def phase_kernels():
         for dim in KERNEL_DIMS:
             rows.append(check_kernel(KERNEL_BATCH[dim], dim, dtype_name))
     return rows
+
+
+def phase_kernels_large():
+    return [check_kernel(1, dim, dtype_name)
+            for dtype_name in ("float32", "float64") for dim in LARGE_DIMS]
 
 
 # ---------------------------------------------------------------------------
@@ -334,42 +399,47 @@ def main_path_options(max_iterations=MAIN_MAX_ITERATIONS):
                   max_iterations=max_iterations)
 
 
-def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN):
-    """Solve the flagship batch on `device` through solve_batch, then the
-    first `rerun` instances on the CPU; raise unless the results are finite,
-    nearly all solved, and agree with the CPU run."""
+def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN, n=8,
+                    kkt_dim=MAIN_KKT_DIM, route="ldlt_warp", min_solved=0.999,
+                    iteration_slack=ITERATION_SLACK, x_atol=X_ATOL):
+    """Solve the flagship batch (n variables) on `device` through
+    solve_batch, then the first `rerun` instances on the CPU; raise unless
+    the results are finite, at least `min_solved` of them solved, the
+    kernel `route` launched, and the CPU run agrees (equal status,
+    iterations within `iteration_slack`, x within `x_atol`)."""
     import torch
     import uno_tpu_torch
     from uno_tpu_torch.linalg import cuda_ldlt
     from uno_tpu_torch.model.library import flagship
     from uno_tpu_torch.model.transforms import reformulate_for_interior_point
 
-    nlp, x0, params = flagship(batch)
+    nlp, x0, params = flagship(batch, n=n)
     opts = main_path_options()
     prob = reformulate_for_interior_point(nlp, opts.tolerance)
-    kkt_dim = prob.n + prob.m           # 8 variables + 2 slacks + 2 rows
-    if kkt_dim != MAIN_KKT_DIM:
-        raise AssertionError(f"flagship KKT dim {kkt_dim} != {MAIN_KKT_DIM}")
-    cuda_ldlt.launches = 0
+    if prob.n + prob.m != kkt_dim:      # n variables + 2 slacks + 2 rows
+        raise AssertionError(f"flagship n={n} KKT dim {prob.n + prob.m} != {kkt_dim}")
+    cuda_ldlt.reset_counts()
     t0 = time.monotonic()
     res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device=device)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = cuda_ldlt.launches
-    out = {"batch": batch, "kkt_dim": kkt_dim, "solved": res.num_solved,
+    by_route = dict(cuda_ldlt.launches)
+    launches = sum(by_route.values())
+    out = {"batch": batch, "n": n, "kkt_dim": kkt_dim, "solved": res.num_solved,
            "mean_iterations": float(np.mean(res.iterations)),
            "max_iterations": int(np.max(res.iterations)),
            "wall_s": wall, "solves_per_s": batch / wall,
-           "launches": launches,
+           "launches": launches, "launches_by_route": by_route,
+           "calls_by_route": dict(cuda_ldlt.calls),
            "launches_per_iteration": launches / max(int(np.max(res.iterations)), 1)}
     print(json.dumps(out), flush=True)
-    if torch.device(device).type == "cuda" and launches <= 0:
-        raise AssertionError("the main path launched the LDL^T kernel 0 times")
+    if torch.device(device).type == "cuda" and by_route[route] <= 0:
+        raise AssertionError(f"the main path launched {route} 0 times")
     if res.x.shape != (batch, nlp.n) or not np.all(np.isfinite(res.x)) \
             or not np.all(np.isfinite(res.objective)):
         raise AssertionError("main path: non-finite or misshapen solutions")
-    if res.num_solved < 0.999 * batch:
+    if res.num_solved < min_solved * batch:
         raise AssertionError(f"main path: only {res.num_solved}/{batch} solved")
 
     k = min(rerun, batch)
@@ -378,17 +448,27 @@ def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN):
     if not np.array_equal(ref.status, res.status[:k]):
         raise AssertionError("main path: status differs from the CPU run")
     diff = np.abs(ref.iterations - res.iterations[:k])
-    if diff.max() > ITERATION_SLACK:
+    if diff.max() > iteration_slack:
         raise AssertionError(f"main path: iterations differ by {diff.max()} "
                              "from the CPU run")
     x_err = float(np.max(np.abs(ref.x - res.x[:k])))
-    if not x_err <= X_ATOL:
+    if not x_err <= x_atol:
         raise AssertionError(f"main path: x differs by {x_err:.3e} from the CPU run")
     out.update(cpu_rerun=k, iterations_equal=int(np.sum(diff == 0)),
-               x_max_abs_diff=x_err)
+               iterations_max_diff=int(diff.max()), x_max_abs_diff=x_err)
     print(json.dumps({"cpu_rerun": k, "iterations_equal": out["iterations_equal"],
+                      "iterations_max_diff": out["iterations_max_diff"],
                       "x_max_abs_diff": x_err}), flush=True)
     return out
+
+
+def phase_n512(device="cuda", batch=N512_BATCH, rerun=N512_RERUN):
+    """The n=512 point of the main path: every instance solved, through
+    ldlt_panel on the card."""
+    return phase_main_path(device, batch, rerun, n=N512, kkt_dim=N512_KKT_DIM,
+                           route="ldlt_panel", min_solved=1.0,
+                           iteration_slack=N512_ITERATION_SLACK,
+                           x_atol=N512_X_ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -400,18 +480,71 @@ def phase_single(device="cuda"):
     from uno_tpu_torch.linalg import cuda_ldlt
     from uno_tpu_torch.model.library import hs015
 
-    cuda_ldlt.launches = 0
+    cuda_ldlt.reset_counts()
     t0 = time.monotonic()
     res = uno_tpu_torch.solve(hs015(), preset="ipopt", device=device)
     out = {"status": res.status, "objective": res.objective,
            "iterations": res.iterations, "wall_s": time.monotonic() - t0,
-           "launches": cuda_ldlt.launches}
+           "launches": sum(cuda_ldlt.launches.values()),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls)}
     print(json.dumps(out), flush=True)
-    if device != "cpu" and out["launches"] <= 0:
-        raise AssertionError("hs015 launched the LDL^T kernel 0 times")
+    if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
+        raise AssertionError("hs015 launched ldlt_warp 0 times")
     if res.status != "optimal" or res.iterations != HS015_ITERATIONS \
             or abs(res.objective - HS015_OPTIMUM) > 1e-6 * HS015_OPTIMUM:
         raise AssertionError(f"hs015: {res}")
+    return out
+
+
+def large_optimum(n=LARGE_N):
+    """1 / (1^T Q^-1 1) and x = Q^-1 1 / (1^T Q^-1 1), Q = I + 0.05 (super-
+    and subdiagonal): the optimum of the flagship family at params 0 while
+    x > 0 and |x|^2 < 2 there, which the function checks."""
+    Q = np.eye(n)
+    i = np.arange(n - 1)
+    Q[i, i + 1] = Q[i + 1, i] = 0.05
+    y = np.linalg.solve(Q, np.ones(n))
+    x = y / y.sum()
+    if not (x.min() > 0 and x @ x < 2):
+        raise AssertionError("the closed form's inactive constraints are active")
+    return 1.0 / y.sum(), x
+
+
+def phase_single_large(device="cuda", n=LARGE_N):
+    """solve() of one flagship-family instance (params 0) whose float64 KKT
+    has dim 1280: the single-instance path through ldlt_panel; raise unless
+    it is optimal at its closed-form optimum."""
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.model.transforms import reformulate_for_interior_point
+    from uno_tpu_torch.options import preset
+
+    nlp = flagship(1, n=n)[0]
+    opts = preset("ipopt")
+    prob = reformulate_for_interior_point(nlp, opts.tolerance)
+    if prob.n + prob.m != LARGE_KKT_DIM:
+        raise AssertionError(f"KKT dim {prob.n + prob.m} != {LARGE_KKT_DIM}")
+    f_star, x_star = large_optimum(n)
+    cuda_ldlt.reset_counts()
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve(nlp, options=opts, device=device)
+    out = {"n": n, "kkt_dim": LARGE_KKT_DIM, "kkt_dtype": opts.kkt_dtype,
+           "status": res.status, "objective": res.objective,
+           "objective_gap": res.objective - f_star,
+           "x_max_abs_diff": float(np.max(np.abs(res.x - x_star))),
+           "iterations": res.iterations, "cpu_iterations": LARGE_CPU_ITERATIONS,
+           "wall_s": time.monotonic() - t0,
+           "launches": sum(cuda_ldlt.launches.values()),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls)}
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches_by_route"]["ldlt_panel"] <= 0:
+        raise AssertionError("the large instance launched ldlt_panel 0 times")
+    if res.status != "optimal" or not abs(out["objective_gap"]) <= LARGE_F_ATOL \
+            or abs(res.iterations - LARGE_CPU_ITERATIONS) > LARGE_ITERATION_SLACK:
+        raise AssertionError(f"large instance: {out}")
     return out
 
 
@@ -458,14 +591,20 @@ def phase_profile(batch=MAIN_BATCH, top=12):
     return out
 
 
-def kernel_entry(name, replaces, launches, row):
+def kernel_entry(name, replaces, path, route, row):
+    """One entry of the kernels line: `launches` are the kernels the route
+    launched on `path`'s run and `calls` its wrapper calls there, both as
+    the wrapper counted them; the times and errors are `row`'s."""
+    launches = path["launches_by_route"][route]
+    calls = path["calls_by_route"][route]
     return {"name": name, "route": "cuda",
             "source": "uno_tpu_torch/csrc/ldlt.cu", "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None,
-            "inertia_ms": row["inertia_ms"], "eager_ms": row["eager_ms"],
+            "library_ms": None, "calls": calls,
+            "kernel_launches_per_call": launches / calls if calls else None,
+            "eager_ms": row["eager_ms"],
             "factor_gap": row["factor_gap"],
             "backward_error": row["backward_error"],
             "shape": [row["batch"], row["dim"], row["dim"]],
@@ -483,32 +622,47 @@ def main(argv=None):
     device = run_phase("device", phase_device)
     build = run_phase("build", phase_build)
     sweep = run_phase("kernels", phase_kernels)
+    large = run_phase("kernels_large", phase_kernels_large)
     main_path = run_phase("main_path", phase_main_path)
+    n512 = run_phase("n512", phase_n512)
     single = run_phase("single", phase_single)
+    single_large = run_phase("single_large", phase_single_large)
     profiled = run_phase("profile", phase_profile) if args.profile else None
 
-    # the kernel at the two paths' own shapes: the flagship's KKT (dim 12,
-    # float32) at the full batch, and hs015's (dim 6, float64) alone
-    from uno_tpu_torch.linalg import cuda_ldlt
-    saved = cuda_ldlt.launches
+    # the kernels at the paths' own shapes: the flagship's KKT (dim 12,
+    # float32) at the full batch, hs015's (dim 6, float64) alone, and from
+    # the sweeps the n=512 path's (132, 516, 516) float32 and the large
+    # instance's (1, 1280, 1280) float64
     batched = check_kernel(MAIN_BATCH, MAIN_KKT_DIM, "float32", seed=1)
     K1, expected1 = barrier_kkt_like(1, 6, seed=2)
     single_row = check_kernel(1, 6, "float64", K=K1, expected=expected1)
-    cuda_ldlt.launches = saved
+
+    def row_of(rows, batch, dim, dtype_name):
+        return next(r for r in rows if (r["batch"], r["dim"], r["dtype"])
+                    == (batch, dim, dtype_name))
+
     kernels = [
-        kernel_entry("ldlt_factor_cuda (batched path)",
-                     "uno_tpu/linalg/pallas_ldlt.py:190", main_path["launches"],
-                     batched),
-        kernel_entry("ldlt_factor_cuda (single-instance path)",
-                     "uno_tpu/linalg/pallas_ldlt.py:230", single["launches"],
-                     single_row),
+        kernel_entry("ldlt_warp (batched path)",
+                     "uno_tpu/linalg/pallas_ldlt.py:190", main_path,
+                     "ldlt_warp", batched),
+        kernel_entry("ldlt_warp (single-instance path)",
+                     "uno_tpu/linalg/pallas_ldlt.py:230", single,
+                     "ldlt_warp", single_row),
+        kernel_entry("ldlt_panel (batched path, n=512)",
+                     "uno_tpu/linalg/pallas_ldlt.py:190", n512, "ldlt_panel",
+                     row_of(sweep, N512_BATCH, N512_KKT_DIM, "float32")),
+        kernel_entry("ldlt_panel (single-instance path, dim 1280)",
+                     "uno_tpu/linalg/pallas_ldlt.py:230", single_large,
+                     "ldlt_panel", row_of(large, 1, LARGE_KKT_DIM, "float64")),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"device": device, "build": build, "kernel_sweep": sweep,
-                       "main_path": main_path, "single": single,
+                       "kernels_large": large, "main_path": main_path,
+                       "n512": n512, "single": single,
+                       "single_large": single_large,
                        "profile": profiled, "kernels": kernels,
                        "total_s": total}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

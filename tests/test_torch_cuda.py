@@ -1,6 +1,7 @@
-"""uno_tpu_torch on the card: the LDL^T kernel against its plain version,
-and the batch solve through the kernel.  Marked `cuda`; each test skips
-where torch sees no card.  On the card: pytest -m cuda tests/test_torch_cuda.py"""
+"""uno_tpu_torch on the card: the LDL^T kernels (ldlt_warp up to dim 32,
+ldlt_panel above) against their plain version, and the batch solve through
+them.  Marked `cuda`; each test skips where torch sees no card.  On the
+card: pytest -m cuda tests/test_torch_cuda.py"""
 
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 import chip_smoke
 import uno_tpu_torch
 from uno_tpu_torch.linalg import cuda_ldlt
+from uno_tpu_torch.linalg.ldlt import _inertia
 from uno_tpu_torch.model.library import flagship
 
 pytestmark = pytest.mark.cuda
@@ -22,31 +24,70 @@ def card():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("dim", [1, 6, 12, 40, 132, 260])
+@pytest.mark.parametrize("dim", [1, 6, 12, 31, 32, 33, 34, 40, 64, 65, 66, 132,
+                                 260, 516])
 def test_kernel_matches_plain_version(card, dim, dtype):
-    # backward-error, entry and inertia limits of chip_smoke.check_kernel
+    # backward-error, entry and inertia limits of chip_smoke.check_kernel;
+    # barrier_kkt_like's matrices are indefinite, with a known inertia.
+    # Float64 rows of dims 34 and 66 end two elements into a 16-byte vector
     chip_smoke.check_kernel(8, dim, dtype, seed=dim)
 
 
-def test_kernel_counts_launches_and_rejects_bad_inputs(card):
-    A = torch.eye(5, dtype=torch.float32, device=card)[None].repeat(3, 1, 1)
-    before = cuda_ldlt.launches
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kernel_single_large_instance(card, dtype):
+    chip_smoke.check_kernel(1, 1280, dtype, seed=7)
+
+
+@pytest.mark.parametrize("batch", [1, 65536])
+def test_warp_kernel_batch_sizes(card, batch):
+    chip_smoke.check_kernel(batch, 12, "float32", seed=batch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [3, 40])
+def test_zero_pivot(card, dim, dtype):
+    """An exactly singular matrix: the third pivot is 0, the _safe clamp
+    keeps L finite, and the inertia counts the pivot as zero."""
+    A = torch.eye(dim, dtype=torch.float64)
+    A[:3, :3] = torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0], [1.0, 1.0, 2.0]])
+    A = A.to(dtype=dtype, device=card)[None].repeat(5, 1, 1).contiguous()
     fac = cuda_ldlt.ldlt_factor_cuda(A)
-    torch.cuda.synchronize()
-    assert cuda_ldlt.launches == before + 1
-    assert fac.num_pos.tolist() == [5, 5, 5]
-    with pytest.raises(ValueError):
-        cuda_ldlt.ldlt_factor_cuda(A.transpose(1, 2))
-    with pytest.raises(ValueError):
-        cuda_ldlt.ldlt_factor_cuda(A.half())
+    plain = cuda_ldlt.plain_factorizer(dim)(A)
+    assert torch.isfinite(fac.L).all()
+    assert fac.d[:, 2].abs().max() == 0
+    assert torch.equal(fac.L, plain.L) and torch.equal(fac.d, plain.d)
+    assert fac.num_zero.tolist() == [1] * 5
+    assert fac.num_pos.tolist() == [dim - 1] * 5 and fac.num_neg.tolist() == [0] * 5
+    for got, want in zip(fac[2:], _inertia(fac.d, 1e-32)):
+        assert torch.equal(got, want)
+
+
+def test_kernel_counts_launches_and_rejects_bad_inputs(card):
+    for dim, route in ((5, "ldlt_warp"), (40, "ldlt_panel")):
+        A = torch.eye(dim, dtype=torch.float32, device=card)[None].repeat(3, 1, 1)
+        before = dict(cuda_ldlt.launches), dict(cuda_ldlt.calls)
+        fac = cuda_ldlt.ldlt_factor_cuda(A)
+        torch.cuda.synchronize()
+        # the kernels the C side launched: 1, or 3 for two panel steps
+        launched = cuda_ldlt.plan(3, dim, A.dtype).launches
+        assert launched == (1 if route == "ldlt_warp" else 3)
+        assert cuda_ldlt.launches[route] == before[0][route] + launched
+        assert sum(cuda_ldlt.launches.values()) == sum(before[0].values()) + launched
+        assert cuda_ldlt.calls[route] == before[1][route] + 1
+        assert sum(cuda_ldlt.calls.values()) == sum(before[1].values()) + 1
+        assert fac.num_pos.tolist() == [dim] * 3
+        with pytest.raises(ValueError):
+            cuda_ldlt.ldlt_factor_cuda(A.transpose(1, 2))
+        with pytest.raises(ValueError):
+            cuda_ldlt.ldlt_factor_cuda(A.half())
 
 
 def test_batch_solve_on_the_card_matches_cpu(card):
     nlp, x0, p = flagship(64)
     opts = chip_smoke.main_path_options()
-    before = cuda_ldlt.launches
+    before = cuda_ldlt.launches["ldlt_warp"]
     gpu = uno_tpu_torch.solve_batch(nlp, x0, p, opts=opts, device="cuda")
-    assert cuda_ldlt.launches > before
+    assert cuda_ldlt.launches["ldlt_warp"] > before
     cpu = uno_tpu_torch.solve_batch(nlp, x0, p, opts=opts, device="cpu")
     assert gpu.status.tolist() == cpu.status.tolist()
     assert np.abs(gpu.iterations - cpu.iterations).max() <= chip_smoke.ITERATION_SLACK

@@ -201,6 +201,19 @@ def test_chip_smoke_main_path_phase_on_cpu():
     assert out["solved"] == 16
     assert out["iterations_equal"] == 16
     assert out["launches"] == 0          # the CPU runs the plain versions
+    assert set(out["calls_by_route"].values()) == {0}
+
+
+def test_chip_smoke_large_optimum_matches_a_cpu_solve():
+    """The closed form chip_smoke.py holds its large single instance to,
+    against the port's own solve of the same family at a small n."""
+    import chip_smoke
+    from uno_tpu_torch.model.library import flagship
+    res = uno_tpu_torch.solve(flagship(1, n=16)[0], preset="ipopt", device="cpu")
+    f_star, x_star = chip_smoke.large_optimum(16)
+    assert res.status == "optimal"
+    assert abs(res.objective - f_star) <= chip_smoke.LARGE_F_ATOL
+    np.testing.assert_allclose(res.x, x_star, atol=1e-6)
 
 
 def test_single_solve_reports_every_iteration(capsys):

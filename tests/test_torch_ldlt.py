@@ -53,7 +53,9 @@ TORCH_FACTORS = {
 }
 
 
-@pytest.mark.parametrize("dim", [12, 40, 200])
+# 32/33 and 64/65 are the edges of the kernels' routes and of the plain
+# versions' forms; 100 leaves a ragged last panel
+@pytest.mark.parametrize("dim", [12, 32, 33, 40, 64, 65, 100, 200])
 @pytest.mark.parametrize("form", list(JAX_FACTORS))
 def test_plain_ldlt_matches_uno_tpu(form, dim):
     K, (n, m) = kkt(dim, seed=dim)
@@ -119,16 +121,97 @@ def test_cuda_wrapper_rejects_bad_inputs(bad):
 
 
 def test_cuda_wrapper_counts_only_kernel_launches():
-    before = cuda_ldlt.launches
+    before = dict(cuda_ldlt.launches), dict(cuda_ldlt.calls)
+    assert set(before[0]) == set(before[1]) == {"ldlt_warp", "ldlt_panel"}
     A = torch.as_tensor(kkt(40, 1)[0])[None]
     fac = cuda_ldlt.ldlt_factor_cuda(A)
-    assert cuda_ldlt.launches == before       # the CPU path launches nothing
+    # the CPU path launches nothing
+    assert (cuda_ldlt.launches, cuda_ldlt.calls) == before
     # ... and runs the plain version the solver uses at that dim
     np.testing.assert_array_equal(fac.L.numpy(), tl.plain_factorizer(40)(A).L.numpy())
     assert len(cuda_ldlt.source_hash()) == 16
+    counts = [torch.empty(1, dtype=torch.int64) for _ in range(3)]
     with pytest.raises(ValueError):
-        cuda_ldlt.launch(A, torch.empty_like(A), torch.empty(A.shape[:2]))
-    assert cuda_ldlt.launches == before
+        cuda_ldlt.launch(A, torch.empty_like(A), torch.empty(A.shape[:2]), *counts)
+    assert (cuda_ldlt.launches, cuda_ldlt.calls) == before
+    # uncounted() restores the counts; reset_counts() zeroes them
+    with cuda_ldlt.uncounted():
+        cuda_ldlt.launches["ldlt_panel"] += 3
+        cuda_ldlt.calls["ldlt_panel"] += 1
+    assert (cuda_ldlt.launches, cuda_ldlt.calls) == before
+    cuda_ldlt.reset_counts()
+    assert set(cuda_ldlt.launches.values()) == set(cuda_ldlt.calls.values()) == {0}
+
+
+def _rn32(x):
+    """The float32 nearest to the exact rational x, ties to even."""
+    from fractions import Fraction
+    f = np.float32(float(x))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                     int(np.float32(c).view(np.int32)) & 1))
+
+
+def test_markstein_division_is_correctly_rounded():
+    """csrc/ldlt.cu's row solves divide a by b as q0 = a y, r = fma(-q0,
+    b, a), q = fma(r, y, q0) with y = 1/b correctly rounded; that is a
+    correctly rounded a / b (in range), so the kernel keeps the plain
+    version's quotients.  Checked in exact arithmetic on float32."""
+    from fractions import Fraction as F
+    rng = np.random.default_rng(0)
+    n = 3000
+    sign = np.where(rng.uniform(size=n) < 0.5, -1, 1)
+    a = (sign * rng.uniform(1, 2, n) * 2.0 ** rng.integers(-40, 40, n)).astype(np.float32)
+    b = (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-40, 40, n)).astype(np.float32)
+    b[:500] = (2 - 2.0 ** -23) * 2.0 ** rng.integers(-20, 20, 500)   # all-ones significands
+    b[500:1000] = 1 + rng.integers(0, 64, 500) * 2.0 ** -23          # just above powers of 2
+    a[1000:1500] = 2 - rng.integers(0, 64, 500) * 2.0 ** -23
+    for x, y_ in zip(a, b):
+        y = np.float32(1) / y_
+        q0 = np.float32(x * y)
+        r = _rn32(F(float(x)) - F(float(q0)) * F(float(y_)))
+        q = _rn32(F(float(r)) * F(float(y)) + F(float(q0)))
+        assert q == x / y_, (x, y_)
+
+
+PLAN_DIMS = [1, 2, 6, 8, 9, 12, 16, 17, 31, 32, 33, 34, 63, 64, 65, 66, 100,
+             516, 640, 1280, 4097, 46340]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", PLAN_DIMS)
+def test_plan_routes_and_sizes(dim, dtype):
+    """The launch plan the C side checks: ldlt_warp up to dim 32, ldlt_panel
+    above it with 2 ceil(dim/32) - 1 launches (the ragged last panel has no
+    trailing update), shared memory an H100 block can have, grids the
+    card takes, and every instance covered."""
+    item = torch.empty((), dtype=dtype).element_size()
+    for batch in (1, 3, 132, 65536):
+        if batch * dim * dim > 2**33:
+            continue
+        p = cuda_ldlt.plan(batch, dim, dtype)
+        assert (p.route == "ldlt_warp") == (dim <= 32)
+        assert all(0 < s <= cuda_ldlt.SMEM_MAX for s in p.smem)
+        assert all(b % 32 == 0 and 32 <= b <= 1024 for b in p.block)
+        assert all(1 <= g <= 2**31 - 1 for g in p.grids)
+        if p.route == "ldlt_warp":
+            assert p.group == min(g for g in (8, 16, 32) if g >= dim)
+            per_block = p.block[0] // p.group
+            assert p.smem[0] >= (per_block * dim * dim + p.block[0]) * item
+            assert p.grids == (-(-batch // per_block),)
+            assert p.launches == 1
+        else:
+            assert p.launches == 2 * -(-dim // 32) - 1
+            tile = 32 if dim <= 64 else 64
+            assert p.rows in (32, 64, 128) and p.block == (p.rows, (tile // 4) ** 2)
+            # the first panel step covers every row below the panel, and
+            # its trailing update every tile of their lower triangle
+            nt = -(-(dim - 32) // tile)
+            assert p.grids[0] == batch * -(-(dim - 32) // p.rows)
+            assert p.grids[1] == batch * nt * (nt + 1) // 2
+            assert p.grids[-1] == batch          # the last panel, one block each
+    with pytest.raises(ValueError):
+        cuda_ldlt.plan(0, dim, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

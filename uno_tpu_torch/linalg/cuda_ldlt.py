@@ -1,45 +1,144 @@
-"""The batched LDL^T kernel (csrc/ldlt.cu) and its wrapper.
+"""The batched LDL^T kernels (csrc/ldlt.cu) and their wrapper.
 
-Counterpart of uno_tpu/linalg/pallas_ldlt.py: the CUDA kernel replaces both
-Pallas functions there (`ldlt_factor_pallas`, `ldlt_factor_pallas_batched`);
-the single instance is the batch of one.  It takes every dim and both
-float32 and float64.
+Counterpart of uno_tpu/linalg/pallas_ldlt.py: two CUDA kernels replace both
+Pallas functions there (`ldlt_factor_pallas`, `ldlt_factor_pallas_batched`),
+routed by dim, the single instance being the batch of one:
+  * `ldlt_warp`   dim <= 32: a group of 8, 16 or 32 lanes per instance;
+  * `ldlt_panel`  dim > 32: panels of 32 columns, a panel kernel and a
+                  trailing-update kernel per panel step.
+Both take float32 and float64 and count the inertia themselves.
 
-The kernel is compiled with nvcc into a shared library with a plain C
-interface and loaded with ctypes.  It builds on first use into
+The kernels are compiled with nvcc into a shared library with a plain C
+interface and loaded with ctypes.  They build on first use into
 uno_tpu_torch/_build/, keyed by a hash of the csrc/ sources.
 
-`ldlt_factor_cuda(A)` launches the kernel for a CUDA tensor; for a CPU
-tensor it runs the plain version uno_tpu's batch path uses at that dim
-(`linalg.ldlt.plain_factorizer`), the one place where that choice is made.
-`launch(A, L, d)` is the launch alone, into given outputs; it counts each
-launch in the module's `launches`.
+`plan(batch, dim, dtype)` is the route and the launch sizes of a call; the
+C side refuses a plan it would not make.  `ldlt_factor_cuda(A)` launches
+the kernels for a CUDA tensor; for a CPU tensor it runs the plain version
+uno_tpu's batch path uses at that dim (`linalg.ldlt.plain_factorizer`),
+the one place where that choice is made.  `launch(A, L, d, pos, neg, zero)`
+is the launch alone, into given outputs; by route, it adds the kernels the
+C side reports it launched to the module's `launches`, and one to `calls`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
-from uno_tpu_torch.linalg.ldlt import LDLT, _inertia, plain_factorizer
+from uno_tpu_torch.linalg.ldlt import LDLT, plain_factorizer
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-MAX_DIM = 46340          # dim * dim must fit the kernel's int indices
+MAX_DIM = 46340          # dim * dim must fit the kernels' int indices
+ROUTES = ("ldlt_warp", "ldlt_panel")
+WARP_MAX_DIM = 32        # ldlt_warp up to this dim, ldlt_panel above
+PANEL = 32               # ldlt_panel's panel width (PB in ldlt.cu)
+TILE = 64                # its trailing-update tile (32 up to dim 64)
+WARP_THREADS = 256       # ldlt_warp's largest block
+SMEM_DEFAULT = 48 * 1024  # dynamic shared memory a block gets without opting in
+SMEM_MAX = 232448        # what an H100 block can opt in to
+SMS = 132                # H100 SXM's multiprocessors: ldlt_panel's chunk size aims at two blocks each
+MAX_GRID = 2**31 - 1
 
-# kernel launches since the last reset (set it to 0 to reset)
-launches = 0
+# since the last reset_counts(), by route: the kernels launched, as the C
+# side reports them, and the wrapper calls
+launches = dict.fromkeys(ROUTES, 0)
+calls = dict.fromkeys(ROUTES, 0)
 # nvcc's output of the build of this process (ptxas registers and spills)
 build_log = ""
 _lib = None
+
+
+def reset_counts() -> None:
+    for counts in (launches, calls):
+        counts.update(dict.fromkeys(ROUTES, 0))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (comparisons, timing) leave `launches` and
+    `calls` as they were."""
+    saved = dict(launches), dict(calls)
+    try:
+        yield
+    finally:
+        launches.update(saved[0])
+        calls.update(saved[1])
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The launches of one call: `block`, `smem` (dynamic shared memory
+    bytes) per kernel of the route, and `grids`, the blocks of every launch
+    in order.  `group` is ldlt_warp's lanes per instance; `rows` is
+    ldlt_panel's rows per chunk."""
+    route: str
+    group: int
+    rows: int
+    block: tuple
+    smem: tuple
+    grids: tuple
+
+    @property
+    def launches(self) -> int:
+        return len(self.grids)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(batch: int, dim: int, dtype: torch.dtype) -> Plan:
+    """The route and launch sizes of a call on (batch, dim, dim) of dtype;
+    csrc/ldlt.cu computes the same numbers and refuses others."""
+    if batch < 1 or not 1 <= dim <= MAX_DIM:
+        raise ValueError(f"batch {batch}, dim {dim}: expected batch >= 1 and "
+                         f"1 <= dim <= {MAX_DIM}")
+    item = torch.empty((), dtype=dtype).element_size()
+    if dim <= WARP_MAX_DIM:
+        group = 8 if dim <= 8 else (16 if dim <= 16 else 32)
+        per_warp = 32 // group
+        per_instance = dim * dim * item
+        warps = WARP_THREADS // 32
+        while warps > 1 and warps * (per_warp * per_instance + 32 * item) > SMEM_DEFAULT:
+            warps //= 2
+        warps = min(warps, _ceil(batch, per_warp))
+        per_block = warps * per_warp
+        vec = 16 // item     # the instances, then a column buffer of a group's lanes
+        smem = (_ceil(per_block * dim * dim, vec) * vec + 32 * warps) * item
+        return Plan("ldlt_warp", group, 0, (32 * warps,), (smem,),
+                    (_ceil(batch, per_block),))
+    tile = 32 if dim - PANEL <= 32 else TILE    # the trailing block's size
+    rows = 128           # no more than the first step has rows below the panel
+    while rows > 32 and (rows // 2 >= dim - PANEL
+                         or batch * _ceil(dim - PANEL, rows) < 2 * SMS):
+        rows //= 2
+    stride = PANEL + 16 // item                      # 16-byte rows
+    panel_smem = (PANEL * stride + 2 * PANEL) * item
+    trail_smem = 2 * PANEL * (tile + 16 // item) * item
+    grids = []
+    for k0 in range(0, dim, PANEL):
+        below = dim - k0 - min(PANEL, dim - k0)
+        grids.append(batch * max(1, _ceil(below, rows)))
+        if below:
+            nt = _ceil(below, tile)
+            grids.append(batch * nt * (nt + 1) // 2)
+    if max(grids) > MAX_GRID:
+        raise ValueError(f"batch {batch}, dim {dim}: {max(grids)} blocks in a "
+                         f"launch, above {MAX_GRID}")
+    return Plan("ldlt_panel", PANEL, rows, (rows, (tile // 4) ** 2),
+                (panel_smem, trail_smem), tuple(grids))
 
 
 def _sources() -> list[Path]:
@@ -92,9 +191,13 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for fn in (lib.uno_ldlt_factor_f32, lib.uno_ldlt_factor_f64):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ptrs = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
+        tail = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]   # stream, launched
+        for fn in (lib.uno_ldlt_warp_f32, lib.uno_ldlt_warp_f64):
+            fn.argtypes = ptrs + [ctypes.c_int] * 4 + tail
+            fn.restype = ctypes.c_int
+        for fn in (lib.uno_ldlt_panel_f32, lib.uno_ldlt_panel_f64):
+            fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -115,45 +218,63 @@ def _check(A: torch.Tensor) -> None:
         raise ValueError("A must be contiguous")
 
 
-def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor) -> None:
-    """Launch the kernel on the current stream: the factors of A (B, dim,
-    dim) on the card into L (B, dim, dim) and d (B, dim) of its dtype and
-    device.  Counts the launch; raises if the launch failed."""
-    global launches
+def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
+           pos: torch.Tensor, neg: torch.Tensor, zero: torch.Tensor,
+           zero_pivot_rtol: float = 1e-32) -> Plan:
+    """Launch the route's kernels on the current stream: the factors of A
+    (B, dim, dim) on the card into L (B, dim, dim) and d (B, dim) of its
+    dtype and device, the inertia into pos, neg and zero (B,) int64.
+    Counts the call and the kernels it launched under its route; raises if
+    a launch failed.  Returns the plan."""
     _check(A)
     if A.device.type != "cuda":
-        raise ValueError(f"the kernel runs on the card; A is on {A.device}")
+        raise ValueError(f"the kernels run on the card; A is on {A.device}")
     batch, dim = A.shape[0], A.shape[-1]
-    for name, t, shape in (("L", L, (batch, dim, dim)), ("d", d, (batch, dim))):
-        if t.device != A.device or t.dtype != A.dtype \
+    outs = (("L", L, (batch, dim, dim), A.dtype), ("d", d, (batch, dim), A.dtype),
+            ("pos", pos, (batch,), torch.int64), ("neg", neg, (batch,), torch.int64),
+            ("zero", zero, (batch,), torch.int64))
+    for name, t, shape, dtype in outs:
+        if t.device != A.device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous {shape} {A.dtype} "
+            raise ValueError(f"{name}: expected a contiguous {shape} {dtype} "
                              f"tensor on {A.device}")
     if batch == 0:
-        return
+        return None
+    p = plan(batch, dim, A.dtype)
     lib = _load()
-    fn = lib.uno_ldlt_factor_f32 if A.dtype == torch.float32 \
-        else lib.uno_ldlt_factor_f64
+    suffix = "f32" if A.dtype == torch.float32 else "f64"
+    ptrs = (A.data_ptr(), L.data_ptr(), d.data_ptr(), pos.data_ptr(),
+            neg.data_ptr(), zero.data_ptr(), batch, dim, float(zero_pivot_rtol))
+    launched = ctypes.c_int(0)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), batch, dim, stream)
+        if p.route == "ldlt_warp":
+            err = getattr(lib, f"uno_ldlt_warp_{suffix}")(
+                *ptrs, p.group, p.block[0], p.smem[0], p.grids[0], stream,
+                ctypes.byref(launched))
+        else:
+            err = getattr(lib, f"uno_ldlt_panel_{suffix}")(
+                *ptrs, p.rows, p.smem[0], p.smem[1], stream, ctypes.byref(launched))
+    launches[p.route] += launched.value
+    calls[p.route] += 1
     if err != 0:
-        raise RuntimeError(f"LDL^T kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"{p.route} launch failed: CUDA error {err} "
                            f"(batch {batch}, dim {dim}, {A.dtype})")
-    launches += 1
+    return p
 
 
 def ldlt_factor_cuda(A: torch.Tensor, zero_pivot_rtol: float = 1e-32,
                      block: int = 32) -> LDLT:
     """Unpivoted LDL^T of every (dim, dim) matrix of A (B, dim, dim), with
-    inertia.  Launches the kernel for a CUDA tensor; a CPU tensor takes the
+    inertia.  Launches the kernels for a CUDA tensor; a CPU tensor takes the
     plain version (`block` is its panel width).  Raises on any input the
-    kernel does not take."""
+    kernels do not take."""
     _check(A)
     if A.device.type == "cpu":
         return plain_factorizer(A.shape[-1], block)(A, zero_pivot_rtol)
     L = torch.empty_like(A)
     d = torch.empty(A.shape[:2], dtype=A.dtype, device=A.device)
-    launch(A, L, d)
-    pos, neg, zero = _inertia(d, zero_pivot_rtol)
+    pos, neg, zero = (torch.empty(A.shape[:1], dtype=torch.int64, device=A.device)
+                      for _ in range(3))
+    launch(A, L, d, pos, neg, zero, zero_pivot_rtol)
     return LDLT(L, d, pos, neg, zero)
