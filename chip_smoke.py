@@ -8,26 +8,36 @@ Phases, each with its own wall-clock budget (a phase that fails or
 overruns raises, and the script exits non-zero):
   1. device       a CUDA card is there; prints nvidia-smi's name and power limit
   2. build        nvcc builds csrc/ldlt.cu (timed)
-  3. kernels      the LDL^T kernels (ldlt_warp up to dim 32, ldlt_panel above)
-                  against their plain PyTorch versions on the card, at dims
-                  12 to 516 (the route edges 31/32/33/64/65 among them) in
-                  float32 and float64; times both with CUDA events, and
-                  counts the kernels a call launches
+  3. kernels      the LDL^T kernels (ldlt_warp up to dim 32, ldlt_column up
+                  to 64, ldlt_panel above) against their plain PyTorch
+                  versions on the card, at dims 12 to 516 (the route edges
+                  31/32/33/64/65 among them) in float32 and float64;
+                  ldlt_column's factors must equal the column form's bit for
+                  bit, and ldlt_panel is timed at its shapes too; times with
+                  CUDA events, and counts the kernels a call launches; then
+                  the kernels against the column form, bit for bit, at the
+                  dims of the SQP's multiplier fits
   4. kernels_large  the same for single instances of dim 640 and 1280
   5. main path    the flagship family (n=8, m=2) at B=65,536 through
                   solve_batch, with the kernels' launch counts; the first
                   64 instances again on the CPU through the plain versions
-  6. n512         the flagship family at n=512 (KKT dim 516), B=132, the
+  6. n32          the flagship family at n=32 (KKT dim 36, ldlt_column),
+                  B=8,192, the same way; 8 instances again on the CPU
+  7. n512         the flagship family at n=512 (KKT dim 516), B=132, the
                   same way; 2 instances again on the CPU
-  7. single       solve(hs015, preset="ipopt") on the card
-  8. single_large solve() of one flagship-family instance at n=1276 (KKT
+  8. single       solve(hs015, preset="ipopt") on the card
+  9. single_large solve() of one flagship-family instance at n=1276 (KKT
                   dim 1280, float64), held against its closed-form optimum
-  9. summary      the {"kernels": [...]} line (each kernel's launches and
+ 10. sqp_batch    filtersqp on the flagship family (n=8) at B=8,192 through
+                  solve_batch; the first 64 instances again on the CPU
+ 11. sqp_single   filtersqp on hs071, funnelsqp and filterslp on hs015, on
+                  the card and on the CPU
+ 12. summary      the {"kernels": [...]} line (each kernel's launches and
                   wrapper calls on its path, as cuda_ldlt counted them),
                   then the last line {"ok": true, "device": {...}}
-With --profile, the main path runs once more under torch.profiler, which
-prints where its time goes (device busy share, kernels and host operators
-by time).
+With --profile, the main path's and the SQP path's flagship batches run
+once more under torch.profiler, which prints where their time goes (device
+busy share, kernels and host operators by time).
 
 Imports torch, numpy and uno_tpu_torch only.  Starts no child process
 other than nvidia-smi and nvcc, and no thread.
@@ -45,8 +55,9 @@ import numpy as np
 
 # seconds per phase; the whole script stays well inside 20 minutes
 BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 180,
-           "main_path": 360, "n512": 240, "single": 120, "single_large": 180,
-           "profile": 300}
+           "main_path": 360, "n32": 240, "n512": 240, "single": 120,
+           "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
+           "profile": 600}
 # the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
 # end two elements into a 16-byte vector
 KERNEL_DIMS = (12, 31, 32, 33, 34, 40, 64, 65, 66, 132, 260, 516)
@@ -56,6 +67,10 @@ KERNEL_BATCH = {12: 65536, 31: 4096, 32: 4096, 33: 4096, 34: 4096, 40: 4096,
                 64: 2048, 65: 2048, 66: 2048, 132: 512, 260: 264, 516: 132}
 # single instances in the Pallas single-instance kernel's range
 LARGE_DIMS = (640, 1280)
+# the dims of the QP multiplier fits' normal equations (m + 2n of each QP)
+# on the SQP paths: hs015's, hs071's and the flagship's optimality and
+# restoration QPs; uno_tpu factors them with the column form
+FIT_DIMS = (6, 10, 16, 18, 22)
 # the kernel against its plain version on the same inputs, entry by entry:
 # |L_k - L_p| <= FACTOR_RTOL * max(|L_p|, 1), and the same for d.  On these
 # matrices a float32 factorization lies up to 4.1e-6 from the float64 one
@@ -86,27 +101,50 @@ ITERATION_SLACK = 0
 X_ATOL = 1e-10
 HS015_ITERATIONS = 17
 HS015_OPTIMUM = 306.5
-# the n=512 point of the main path: bench.py's batch for KKT dim 516, every
-# instance solved; its CPU rerun allows 2 iterations and 1e-6 in x, as the
-# flagship's did before its limits were tightened
+# the n=32 point of the main path (bench.py's n=32 batch, KKT dim 36, the
+# ldlt_column route), held to the flagship's limits
+N32 = 32
+N32_BATCH = 8192
+N32_KKT_DIM = 36
+N32_RERUN = 8
+# the n=512 point of the main path (KKT dim 516, ldlt_panel) at the kernel
+# sweep's batch for dim 516, every instance solved; held to the flagship's
+# limits.  The card's panels give the plain version's factors bit for bit
+# at dims above 64, and an H100 run measured equal iterations on both CPU
+# reruns, with x within 2.8e-17 (PERF.md)
 N512 = 512
 N512_BATCH = 132
 N512_KKT_DIM = 516
 N512_RERUN = 2
-N512_ITERATION_SLACK = 2
-N512_X_ATOL = 1e-6
+N512_ITERATION_SLACK = 0
+N512_X_ATOL = 1e-10
 # one flagship-family instance (params 0) with KKT dim 1280: min x^T Q x with
 # Q = I + 0.05 (super- and subdiagonal), s.t. sum(x) >= 1; the bounds and
 # the norm constraint are inactive at its optimum, 1 / (1^T Q^-1 1).  The
 # port's CPU solve of it, solve(flagship(1, n=1276)[0], preset="ipopt",
 # device="cpu"), takes 21 iterations and ends 2.3e-9 above that value.  The
-# card's float64 factorization sums the trailing updates in another order
-# than the CPU's, so its iterations may differ by LARGE_ITERATION_SLACK
+# card's float64 panels give the plain version's factors bit for bit at
+# dim 1280, and an H100 run took the same 21 iterations (PERF.md)
 LARGE_N = 1276
 LARGE_KKT_DIM = 1280
 LARGE_CPU_ITERATIONS = 21
-LARGE_ITERATION_SLACK = 2
+LARGE_ITERATION_SLACK = 0
 LARGE_F_ATOL = 1e-8
+# the fused SQP path: filtersqp on the flagship family with uno_tpu's
+# bench options for it (bench.py:113-114), its optimality QP's KKT of dim
+# n + m = 10 in float32 and its multiplier fit's normal equations of dim
+# m + 2n = 18 in float64; held to the flagship's limits
+SQP_BATCH = 8192
+SQP_RERUN = 64
+SQP_MAX_ITERATIONS = 60
+SQP_KKT_DIM = 10
+SQP_FIT_DIM = 18
+# single instances of the three presets: the card's run against the CPU's,
+# equal status and iterations, objective within SQP_F_ATOL
+SQP_SINGLE = (("filtersqp", "hs071"), ("funnelsqp", "hs015"),
+              ("filterslp", "hs015"))
+SQP_SINGLE_KKT_DIM = 6       # hs071's optimality QP, n + m, float64
+SQP_F_ATOL = 1e-8
 
 
 class PhaseTimeout(Exception):
@@ -317,7 +355,7 @@ def _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected):
     of which one call launched `launched` kernels."""
     import torch
     from uno_tpu_torch.linalg import cuda_ldlt
-    from uno_tpu_torch.linalg.ldlt import _inertia
+    from uno_tpu_torch.linalg.ldlt import LDLT, _inertia
 
     dtype = A.dtype
     fp = plain(A)
@@ -337,6 +375,10 @@ def _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected):
     if not row["factor_gap"] <= FACTOR_RTOL[dtype_name]:
         raise AssertionError(f"{tag}: kernel and plain L, d differ by "
                              f"{row['factor_gap']:.3e} > {FACTOR_RTOL[dtype_name]:g}")
+    if plan.route == "ldlt_column" and row["factor_gap"] != 0.0:
+        # the column form's operations in its order: equal bit for bit
+        raise AssertionError(f"{tag}: ldlt_column's factors differ from the "
+                             f"column form's by {row['factor_gap']:.3e}")
     upper = torch.triu(fk.L, 1).abs().amax()
     unit = (torch.diagonal(fk.L, dim1=1, dim2=2) - 1).abs().amax()
     if float(upper) != 0.0 or float(unit) != 0.0:
@@ -367,10 +409,61 @@ def _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected):
     L, d = torch.empty_like(A), torch.empty((batch, dim), dtype=dtype, device="cuda")
     counts = [torch.empty(batch, dtype=torch.int64, device="cuda") for _ in range(3)]
     row["ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts))
+    if plan.route == "ldlt_column":
+        # ldlt_panel, which took these dims before, in turns with it
+        panel = (torch.empty_like(A), torch.empty_like(d), *(torch.empty_like(c)
+                                                             for c in counts))
+        cuda_ldlt.launch(A, *panel, route="ldlt_panel")
+        row["panel_factor_gap"] = factor_gap(LDLT(*panel), fp)
+        row["panel_ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts,
+                                                           route="ldlt_panel"))
+        row["ms_again"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts))
     row["plain_ms"] = time_ms(lambda: plain(A))
     row["eager_ms"] = eager_ms(lambda: cuda_ldlt.ldlt_factor_cuda(A))
     row["bound_ms"], row["bound_by"] = bound_ms(batch, dim, A.element_size(), dtype_name)
     print(json.dumps(row), flush=True)
+    return row
+
+
+def fit_like(batch, dim, seed):
+    """Seeded normal equations A^T A + lam I of the QP multiplier fit's
+    kind: A holds Gaussian constraint gradients, then unit columns of the
+    active bounds, and lam = 1e-10 (1 + max |A|) (solvers/qp.py)."""
+    rng = np.random.default_rng(seed)
+    m = max(1, dim // 5)
+    n = (dim - m) // 2
+    A = np.zeros((batch, n, dim))
+    A[:, :, :m] = rng.standard_normal((batch, n, m)) * (rng.uniform(size=(batch, 1, m)) < 0.7)
+    act = rng.uniform(size=(batch, n, 2)) < 0.4
+    idx = np.arange(n)
+    A[:, idx, m + idx] = act[:, :, 0]
+    A[:, idx, m + n + idx] = act[:, :, 1]
+    lam = 1e-10 * (1.0 + np.abs(A).max(axis=(1, 2)))
+    return np.swapaxes(A, 1, 2) @ A + lam[:, None, None] * np.eye(dim)
+
+
+def check_fit_exact(batch, dim, seed=0):
+    """The kernels' factors of multiplier-fit matrices (float64) against
+    uno_tpu's choice for the fit, the column form, at any dim: equal bit for
+    bit, with equal inertia.  Returns the route and the gap (0)."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.linalg.ldlt import ldlt_factor
+    A = torch.as_tensor(fit_like(batch, dim, seed), device="cuda").contiguous()
+    with cuda_ldlt.uncounted():
+        fk = cuda_ldlt.ldlt_factor_cuda(A)
+    fc = ldlt_factor(A)
+    torch.cuda.synchronize()
+    gap = max(float((fk.L - fc.L).abs().amax()), float((fk.d - fc.d).abs().amax()))
+    same = all(torch.equal(getattr(fk, k), getattr(fc, k))
+               for k in ("num_pos", "num_neg", "num_zero"))
+    row = {"check": "fit", "batch": batch, "dim": dim,
+           "route": cuda_ldlt.plan(batch, dim, A.dtype).route,
+           "max_abs_err": gap, "inertia_equal": same}
+    print(json.dumps(row), flush=True)
+    if gap != 0.0 or not same:
+        raise AssertionError(f"fit dim {dim}: the kernel differs from the "
+                             f"column form by {gap:.3e} (inertia equal: {same})")
     return row
 
 
@@ -379,6 +472,7 @@ def phase_kernels():
     for dtype_name in ("float32", "float64"):
         for dim in KERNEL_DIMS:
             rows.append(check_kernel(KERNEL_BATCH[dim], dim, dtype_name))
+    rows += [check_fit_exact(SQP_BATCH, dim, seed=dim) for dim in FIT_DIMS]
     return rows
 
 
@@ -445,21 +539,28 @@ def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN, n=8,
     k = min(rerun, batch)
     ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts,
                                     device="cpu")
+    diff = np.abs(ref.iterations - res.iterations[:k])
+    x_err = float(np.max(np.abs(ref.x - res.x[:k])))
+    out.update(cpu_rerun=k, status_equal=int(np.sum(ref.status == res.status[:k])),
+               iterations_equal=int(np.sum(diff == 0)),
+               iterations_max_diff=int(diff.max()), x_max_abs_diff=x_err)
+    print(json.dumps({key: out[key] for key in (
+        "cpu_rerun", "status_equal", "iterations_equal", "iterations_max_diff",
+        "x_max_abs_diff")}), flush=True)
     if not np.array_equal(ref.status, res.status[:k]):
         raise AssertionError("main path: status differs from the CPU run")
-    diff = np.abs(ref.iterations - res.iterations[:k])
     if diff.max() > iteration_slack:
         raise AssertionError(f"main path: iterations differ by {diff.max()} "
                              "from the CPU run")
-    x_err = float(np.max(np.abs(ref.x - res.x[:k])))
     if not x_err <= x_atol:
         raise AssertionError(f"main path: x differs by {x_err:.3e} from the CPU run")
-    out.update(cpu_rerun=k, iterations_equal=int(np.sum(diff == 0)),
-               iterations_max_diff=int(diff.max()), x_max_abs_diff=x_err)
-    print(json.dumps({"cpu_rerun": k, "iterations_equal": out["iterations_equal"],
-                      "iterations_max_diff": out["iterations_max_diff"],
-                      "x_max_abs_diff": x_err}), flush=True)
     return out
+
+
+def phase_n32(device="cuda", batch=N32_BATCH, rerun=N32_RERUN):
+    """The n=32 point of the main path, through ldlt_column on the card."""
+    return phase_main_path(device, batch, rerun, n=N32, kkt_dim=N32_KKT_DIM,
+                           route="ldlt_column")
 
 
 def phase_n512(device="cuda", batch=N512_BATCH, rerun=N512_RERUN):
@@ -548,11 +649,133 @@ def phase_single_large(device="cuda", n=LARGE_N):
     return out
 
 
-def phase_profile(batch=MAIN_BATCH, top=12):
-    """The main path once more under torch.profiler: the device's busy time
-    (the sum of its kernels' times; one stream, so they do not overlap)
-    against the wall time, and the kernels and host operators that take
-    the most time."""
+def sqp_options():
+    """uno_tpu's bench options for the fused filtersqp batch (bench.py:113)."""
+    from uno_tpu_torch.options import preset
+    return preset("filtersqp", scale_functions=False, kkt_dtype="float32",
+                  max_iterations=SQP_MAX_ITERATIONS)
+
+
+def phase_sqp_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN,
+                    min_solved=0.999):
+    """filtersqp on the flagship batch (n=8) on `device` through
+    solve_batch, then the first `rerun` instances on the CPU; raise unless
+    the results are finite, at least `min_solved` of them solved, ldlt_warp
+    launched, and the CPU run agrees (equal status and iterations, x within
+    X_ATOL)."""
+    import torch
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.solvers import qp
+
+    nlp, x0, params = flagship(batch)
+    opts = sqp_options()
+    cuda_ldlt.reset_counts()
+    qp.reset_counts()
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    by_route = dict(cuda_ldlt.launches)
+    qp_counts = dict(qp.counts)
+    out = {"preset": "filtersqp", "batch": batch, "n": 8,
+           "qp_kkt_dim": SQP_KKT_DIM, "fit_dim": SQP_FIT_DIM,
+           "solved": res.num_solved,
+           "statuses": {k: int(v) for k, v in zip(*np.unique(
+               res.status_names(), return_counts=True))},
+           "mean_iterations": float(np.mean(res.iterations)),
+           "max_iterations": int(np.max(res.iterations)),
+           "wall_s": wall, "solves_per_s": batch / wall,
+           "qp_solves": qp_counts["solves"],
+           "mean_attempts": qp_counts["instances"] / batch,
+           "mean_qp_iterations_per_attempt":
+               qp_counts["iterations"] / max(qp_counts["instances"], 1),
+           "launches": sum(by_route.values()), "launches_by_route": by_route,
+           "calls_by_route": dict(cuda_ldlt.calls)}
+    print(json.dumps(out), flush=True)
+    if torch.device(device).type == "cuda" and by_route["ldlt_warp"] <= 0:
+        raise AssertionError("the SQP path launched ldlt_warp 0 times")
+    if res.x.shape != (batch, nlp.n) or not np.all(np.isfinite(res.x)) \
+            or not np.all(np.isfinite(res.objective)):
+        raise AssertionError("SQP path: non-finite or misshapen solutions")
+    if res.num_solved < min_solved * batch:
+        raise AssertionError(f"SQP path: only {res.num_solved}/{batch} solved")
+
+    k = min(rerun, batch)
+    ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts,
+                                    device="cpu")
+    diff = np.abs(ref.iterations - res.iterations[:k])
+    x_err = float(np.max(np.abs(ref.x - res.x[:k])))
+    out.update(cpu_rerun=k, status_equal=int(np.sum(ref.status == res.status[:k])),
+               iterations_equal=int(np.sum(diff == 0)),
+               iterations_max_diff=int(diff.max()), x_max_abs_diff=x_err)
+    print(json.dumps({key: out[key] for key in (
+        "cpu_rerun", "status_equal", "iterations_equal", "iterations_max_diff",
+        "x_max_abs_diff")}), flush=True)
+    if not np.array_equal(ref.status, res.status[:k]):
+        raise AssertionError("SQP path: status differs from the CPU run")
+    if diff.max() > ITERATION_SLACK:
+        raise AssertionError(f"SQP path: iterations differ by {diff.max()} "
+                             "from the CPU run")
+    if not x_err <= X_ATOL:
+        raise AssertionError(f"SQP path: x differs by {x_err:.3e} from the CPU run")
+    return out
+
+
+def phase_sqp_single(device="cuda"):
+    """filtersqp on hs071, funnelsqp and filterslp on hs015 through solve()
+    on `device` and on the CPU: equal status and iterations, objectives
+    within SQP_F_ATOL, ldlt_warp launched on the card."""
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import get_problem
+
+    runs = []
+    cuda_ldlt.reset_counts()
+    t0 = time.monotonic()
+    for preset, name in SQP_SINGLE:
+        res = uno_tpu_torch.solve(get_problem(name), preset=preset, device=device)
+        runs.append((preset, name, res))
+    wall = time.monotonic() - t0
+    out = {"wall_s": wall, "launches": sum(cuda_ldlt.launches.values()),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "runs": []}
+    for preset, name, res in runs:
+        ref = uno_tpu_torch.solve(get_problem(name), preset=preset, device="cpu")
+        out["runs"].append({"preset": preset, "problem": name,
+                            "status": res.status, "iterations": res.iterations,
+                            "objective": res.objective,
+                            "cpu_status": ref.status,
+                            "cpu_iterations": ref.iterations,
+                            "objective_diff": res.objective - ref.objective})
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
+        raise AssertionError("the SQP single instances launched ldlt_warp 0 times")
+    for r in out["runs"]:
+        if (r["status"], r["iterations"]) != (r["cpu_status"], r["cpu_iterations"]) \
+                or not abs(r["objective_diff"]) <= SQP_F_ATOL \
+                or r["status"] != "optimal":
+            raise AssertionError(f"SQP single instance: {r}")
+    return out
+
+
+def phase_profile(top=12):
+    """The flagship batch of the main path and of the SQP path once more
+    each, under torch.profiler.  The SQP path's host operators are not
+    traced: its million-odd host events would take the profiler longer to
+    sum than the phase's budget."""
+    return {"ipopt": profile_batch(MAIN_BATCH, main_path_options(), top),
+            "filtersqp": profile_batch(SQP_BATCH, sqp_options(), top,
+                                       host_ops=False)}
+
+
+def profile_batch(batch, opts, top, host_ops=True):
+    """The flagship batch under torch.profiler: the device's busy time (the
+    sum of its kernels' times; one stream, so they do not overlap) against
+    the wall time, and the kernels and (with `host_ops`) the host operators
+    that take the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -560,9 +783,9 @@ def phase_profile(batch=MAIN_BATCH, top=12):
     from uno_tpu_torch.model.library import flagship
 
     nlp, x0, params = flagship(batch)
-    opts = main_path_options()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device="cuda")
         torch.cuda.synchronize()
@@ -591,10 +814,11 @@ def phase_profile(batch=MAIN_BATCH, top=12):
     return out
 
 
-def kernel_entry(name, replaces, path, route, row):
+def kernel_entry(name, replaces, path, route, row, **extra):
     """One entry of the kernels line: `launches` are the kernels the route
     launched on `path`'s run and `calls` its wrapper calls there, both as
-    the wrapper counted them; the times and errors are `row`'s."""
+    the wrapper counted them; the times and errors are `row`'s; `extra`
+    adds keys."""
     launches = path["launches_by_route"][route]
     calls = path["calls_by_route"][route]
     return {"name": name, "route": "cuda",
@@ -608,7 +832,7 @@ def kernel_entry(name, replaces, path, route, row):
             "factor_gap": row["factor_gap"],
             "backward_error": row["backward_error"],
             "shape": [row["batch"], row["dim"], row["dim"]],
-            "dtype": row["dtype"]}
+            "dtype": row["dtype"], **extra}
 
 
 def main(argv=None):
@@ -624,9 +848,12 @@ def main(argv=None):
     sweep = run_phase("kernels", phase_kernels)
     large = run_phase("kernels_large", phase_kernels_large)
     main_path = run_phase("main_path", phase_main_path)
+    n32 = run_phase("n32", phase_n32)
     n512 = run_phase("n512", phase_n512)
     single = run_phase("single", phase_single)
     single_large = run_phase("single_large", phase_single_large)
+    sqp_batch = run_phase("sqp_batch", phase_sqp_batch)
+    sqp_single = run_phase("sqp_single", phase_sqp_single)
     profiled = run_phase("profile", phase_profile) if args.profile else None
 
     # the kernels at the paths' own shapes: the flagship's KKT (dim 12,
@@ -636,10 +863,24 @@ def main(argv=None):
     batched = check_kernel(MAIN_BATCH, MAIN_KKT_DIM, "float32", seed=1)
     K1, expected1 = barrier_kkt_like(1, 6, seed=2)
     single_row = check_kernel(1, 6, "float64", K=K1, expected=expected1)
+    # the n=32 path's KKT (dim 36, float32) at its batch; the SQP batch's
+    # optimality-QP KKT (dim 10, float32) and the shape of its multiplier
+    # fit (dim 18, float64; check_fit_exact holds the fit's own matrices,
+    # whose float32 factors are not finite, in the kernels phase) at its
+    # batch; the SQP single instances' largest KKT, hs071's (dim 6,
+    # float64), has the shape of hs015's under ipopt
+    n32_row = check_kernel(N32_BATCH, N32_KKT_DIM, "float32", seed=3)
+    sqp_row = check_kernel(SQP_BATCH, SQP_KKT_DIM, "float32", seed=4)
+    fit_row = check_kernel(SQP_BATCH, SQP_FIT_DIM, "float64", seed=5)
 
     def row_of(rows, batch, dim, dtype_name):
-        return next(r for r in rows if (r["batch"], r["dim"], r["dtype"])
+        return next(r for r in rows if (r["batch"], r["dim"], r.get("dtype"))
                     == (batch, dim, dtype_name))
+
+    def at(row):
+        return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "max_abs_err", "factor_gap", "dtype")} | {
+            "shape": [row["batch"], row["dim"], row["dim"]]}
 
     kernels = [
         kernel_entry("ldlt_warp (batched path)",
@@ -654,6 +895,16 @@ def main(argv=None):
         kernel_entry("ldlt_panel (single-instance path, dim 1280)",
                      "uno_tpu/linalg/pallas_ldlt.py:230", single_large,
                      "ldlt_panel", row_of(large, 1, LARGE_KKT_DIM, "float64")),
+        kernel_entry("ldlt_column (batched path, n=32)",
+                     "uno_tpu/linalg/pallas_ldlt.py:190", n32, "ldlt_column",
+                     n32_row, panel_ms=n32_row["panel_ms"],
+                     panel_factor_gap=n32_row["panel_factor_gap"]),
+        kernel_entry("ldlt_warp (SQP batched path, filtersqp)",
+                     "uno_tpu/linalg/pallas_ldlt.py:190", sqp_batch,
+                     "ldlt_warp", sqp_row, multiplier_fit=at(fit_row)),
+        kernel_entry("ldlt_warp (SQP single-instance path)",
+                     "uno_tpu/linalg/pallas_ldlt.py:230", sqp_single,
+                     "ldlt_warp", single_row),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
@@ -661,8 +912,11 @@ def main(argv=None):
         with open(args.out, "w") as fh:
             json.dump({"device": device, "build": build, "kernel_sweep": sweep,
                        "kernels_large": large, "main_path": main_path,
-                       "n512": n512, "single": single,
-                       "single_large": single_large,
+                       "n32": n32, "n512": n512, "single": single,
+                       "single_large": single_large, "sqp_batch": sqp_batch,
+                       "sqp_single": sqp_single,
+                       "path_kernels": [batched, single_row, n32_row,
+                                        sqp_row, fit_row],
                        "profile": profiled, "kernels": kernels,
                        "total_s": total}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

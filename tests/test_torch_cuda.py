@@ -1,7 +1,8 @@
 """uno_tpu_torch on the card: the LDL^T kernels (ldlt_warp up to dim 32,
-ldlt_panel above) against their plain version, and the batch solve through
-them.  Marked `cuda`; each test skips where torch sees no card.  On the
-card: pytest -m cuda tests/test_torch_cuda.py"""
+ldlt_column up to 64, ldlt_panel above) against their plain version, and
+the batch solves (ipopt and filtersqp) through them.  Marked `cuda`; each
+test skips where torch sees no card.  On the card:
+pytest -m cuda tests/test_torch_cuda.py"""
 
 import numpy as np
 import pytest
@@ -63,14 +64,15 @@ def test_zero_pivot(card, dim, dtype):
 
 
 def test_kernel_counts_launches_and_rejects_bad_inputs(card):
-    for dim, route in ((5, "ldlt_warp"), (40, "ldlt_panel")):
+    for dim, route in ((5, "ldlt_warp"), (40, "ldlt_column"), (70, "ldlt_panel")):
         A = torch.eye(dim, dtype=torch.float32, device=card)[None].repeat(3, 1, 1)
         before = dict(cuda_ldlt.launches), dict(cuda_ldlt.calls)
         fac = cuda_ldlt.ldlt_factor_cuda(A)
         torch.cuda.synchronize()
-        # the kernels the C side launched: 1, or 3 for two panel steps
+        # the kernels the C side launched: 1, or 5 for three panel steps
         launched = cuda_ldlt.plan(3, dim, A.dtype).launches
-        assert launched == (1 if route == "ldlt_warp" else 3)
+        assert cuda_ldlt.plan(3, dim, A.dtype).route == route
+        assert launched == (5 if route == "ldlt_panel" else 1)
         assert cuda_ldlt.launches[route] == before[0][route] + launched
         assert sum(cuda_ldlt.launches.values()) == sum(before[0].values()) + launched
         assert cuda_ldlt.calls[route] == before[1][route] + 1
@@ -92,3 +94,46 @@ def test_batch_solve_on_the_card_matches_cpu(card):
     assert gpu.status.tolist() == cpu.status.tolist()
     assert np.abs(gpu.iterations - cpu.iterations).max() <= chip_smoke.ITERATION_SLACK
     np.testing.assert_allclose(gpu.x, cpu.x, atol=chip_smoke.X_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [33, 34, 36, 40, 47, 63, 64])
+def test_column_kernel_equals_the_column_form(card, dim, dtype):
+    """ldlt_column repeats ldlt_factor's operations in its order: L, d and
+    the inertia equal bit for bit, for batches that fill a block and for
+    ragged ones."""
+    from uno_tpu_torch.linalg.ldlt import ldlt_factor
+    for batch in (1, 3, 257):
+        K, _ = chip_smoke.barrier_kkt_like(batch, dim, seed=dim + batch)
+        A = torch.as_tensor(K, dtype=dtype, device=card).contiguous()
+        fk, fc = cuda_ldlt.ldlt_factor_cuda(A), ldlt_factor(A)
+        assert cuda_ldlt.plan(batch, dim, dtype).route == "ldlt_column"
+        for name in LDLT_FIELDS:
+            assert torch.equal(getattr(fk, name), getattr(fc, name)), (batch, name)
+
+
+LDLT_FIELDS = ("L", "d", "num_pos", "num_neg", "num_zero")
+
+
+@pytest.mark.parametrize("dim", chip_smoke.FIT_DIMS + (40, 64))
+def test_kernels_equal_the_column_form_at_the_multiplier_fit_dims(card, dim):
+    """The QP's multiplier fit factors its normal equations with uno_tpu's
+    column form: the kernels give the same factors at the fit dims."""
+    row = chip_smoke.check_fit_exact(64, dim, seed=dim)
+    assert row["max_abs_err"] == 0.0 and row["inertia_equal"]
+
+
+def test_sqp_batch_on_the_card_matches_cpu(card):
+    nlp, x0, p = flagship(64)
+    opts = chip_smoke.sqp_options()
+    before = cuda_ldlt.launches["ldlt_warp"]
+    gpu = uno_tpu_torch.solve_batch(nlp, x0, p, opts=opts, device="cuda")
+    assert cuda_ldlt.launches["ldlt_warp"] > before
+    cpu = uno_tpu_torch.solve_batch(nlp, x0, p, opts=opts, device="cpu")
+    assert gpu.status.tolist() == cpu.status.tolist()
+    assert gpu.iterations.tolist() == cpu.iterations.tolist()
+    np.testing.assert_allclose(gpu.x, cpu.x, atol=chip_smoke.X_ATOL)
+
+
+def test_sqp_single_instances_on_the_card_match_cpu(card):
+    chip_smoke.phase_sqp_single("cuda")

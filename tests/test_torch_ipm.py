@@ -175,8 +175,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         uno_tpu_torch.solve_batch(nlp, x0, p, preset="ipopt")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         uno_tpu_torch.solve(hs015(), preset="ipopt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uno_tpu_torch.solve(hs015(), preset="filtersqp")
     with pytest.raises(NotImplementedError):
-        uno_tpu_torch.solve(hs015(), preset="filtersqp", device="cpu")
+        uno_tpu_torch.solve(hs015(), preset="byrd", device="cpu")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -185,6 +187,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "sys.modules['jax'] = None\n"          # any import of jax fails
         "import uno_tpu_torch, uno_tpu_torch.interop, chip_smoke\n"
         "import uno_tpu_torch.linalg.cuda_ldlt, uno_tpu_torch.model.library\n"
+        "import uno_tpu_torch.solvers.qp, uno_tpu_torch.solvers.sqp_fused\n"
+        "import uno_tpu_torch.solvers.batch, uno_tpu_torch.api\n"
         "bad = [m for m in sys.modules if m == 'uno_tpu' or m.startswith('uno_tpu.')\n"
         "       or (m.startswith('jax.') or m == 'jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

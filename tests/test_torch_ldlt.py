@@ -122,7 +122,7 @@ def test_cuda_wrapper_rejects_bad_inputs(bad):
 
 def test_cuda_wrapper_counts_only_kernel_launches():
     before = dict(cuda_ldlt.launches), dict(cuda_ldlt.calls)
-    assert set(before[0]) == set(before[1]) == {"ldlt_warp", "ldlt_panel"}
+    assert set(before[0]) == set(before[1]) == {"ldlt_warp", "ldlt_column", "ldlt_panel"}
     A = torch.as_tensor(kkt(40, 1)[0])[None]
     fac = cuda_ldlt.ldlt_factor_cuda(A)
     # the CPU path launches nothing
@@ -181,37 +181,56 @@ PLAN_DIMS = [1, 2, 6, 8, 9, 12, 16, 17, 31, 32, 33, 34, 63, 64, 65, 66, 100,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dim", PLAN_DIMS)
 def test_plan_routes_and_sizes(dim, dtype):
-    """The launch plan the C side checks: ldlt_warp up to dim 32, ldlt_panel
-    above it with 2 ceil(dim/32) - 1 launches (the ragged last panel has no
-    trailing update), shared memory an H100 block can have, grids the
-    card takes, and every instance covered."""
+    """The launch plan the C side checks: ldlt_warp up to dim 32,
+    ldlt_column up to 64 (a warp per instance, its matrix in rows of odd
+    stride), ldlt_panel above it with 2 ceil(dim/32) - 1 launches (the
+    ragged last panel has no trailing update; it may be forced at 33-64),
+    shared memory an H100 block can have, grids the card takes, and every
+    instance covered."""
     item = torch.empty((), dtype=dtype).element_size()
     for batch in (1, 3, 132, 65536):
         if batch * dim * dim > 2**33:
             continue
-        p = cuda_ldlt.plan(batch, dim, dtype)
-        assert (p.route == "ldlt_warp") == (dim <= 32)
-        assert all(0 < s <= cuda_ldlt.SMEM_MAX for s in p.smem)
-        assert all(b % 32 == 0 and 32 <= b <= 1024 for b in p.block)
-        assert all(1 <= g <= 2**31 - 1 for g in p.grids)
-        if p.route == "ldlt_warp":
-            assert p.group == min(g for g in (8, 16, 32) if g >= dim)
-            per_block = p.block[0] // p.group
-            assert p.smem[0] >= (per_block * dim * dim + p.block[0]) * item
-            assert p.grids == (-(-batch // per_block),)
-            assert p.launches == 1
+        plans = [cuda_ldlt.plan(batch, dim, dtype)]
+        assert plans[0].route == ("ldlt_warp" if dim <= 32 else
+                                  "ldlt_column" if dim <= 64 else "ldlt_panel")
+        if plans[0].route == "ldlt_column":
+            plans.append(cuda_ldlt.plan(batch, dim, dtype, route="ldlt_panel"))
         else:
-            assert p.launches == 2 * -(-dim // 32) - 1
-            tile = 32 if dim <= 64 else 64
-            assert p.rows in (32, 64, 128) and p.block == (p.rows, (tile // 4) ** 2)
-            # the first panel step covers every row below the panel, and
-            # its trailing update every tile of their lower triangle
-            nt = -(-(dim - 32) // tile)
-            assert p.grids[0] == batch * -(-(dim - 32) // p.rows)
-            assert p.grids[1] == batch * nt * (nt + 1) // 2
-            assert p.grids[-1] == batch          # the last panel, one block each
+            with pytest.raises(ValueError):
+                cuda_ldlt.plan(batch, dim, dtype, route="ldlt_column")
+        for p in plans:
+            _check_plan(p, batch, dim, item)
     with pytest.raises(ValueError):
         cuda_ldlt.plan(0, dim, dtype)
+
+
+def _check_plan(p, batch, dim, item):
+    assert all(0 < s <= cuda_ldlt.SMEM_MAX for s in p.smem)
+    assert all(b % 32 == 0 and 32 <= b <= 1024 for b in p.block)
+    assert all(1 <= g <= 2**31 - 1 for g in p.grids)
+    if p.route == "ldlt_warp":
+        assert p.group == min(g for g in (8, 16, 32) if g >= dim)
+        per_block = p.block[0] // p.group
+        assert p.smem[0] >= (per_block * dim * dim + p.block[0]) * item
+        assert p.grids == (-(-batch // per_block),)
+        assert p.launches == 1
+    elif p.route == "ldlt_column":
+        warps = p.block[0] // 32
+        assert 1 <= warps <= cuda_ldlt.COLUMN_WARPS
+        assert p.smem[0] == warps * dim * (dim | 1) * item <= cuda_ldlt.SMEM_DEFAULT
+        assert p.grids == (-(-batch // warps),)
+        assert p.launches == 1
+    else:
+        assert p.launches == 2 * -(-dim // 32) - 1
+        tile = 32 if dim <= 64 else 64
+        assert p.rows in (32, 64, 128) and p.block == (p.rows, (tile // 4) ** 2)
+        # the first panel step covers every row below the panel, and its
+        # trailing update every tile of their lower triangle
+        nt = -(-(dim - 32) // tile)
+        assert p.grids[0] == batch * -(-(dim - 32) // p.rows)
+        assert p.grids[1] == batch * nt * (nt + 1) // 2
+        assert p.grids[-1] == batch          # the last panel, one block each
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

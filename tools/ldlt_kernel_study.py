@@ -235,7 +235,7 @@ def per_kernel(rows, calls=5):
     `calls` calls)."""
     from torch.profiler import ProfilerActivity, profile
     shapes = [(chip_smoke.KERNEL_BATCH[dim], dim) for dim in chip_smoke.KERNEL_DIMS
-              if dim > cuda_ldlt.WARP_MAX_DIM] + [(1, 1280)]
+              if dim > cuda_ldlt.COLUMN_MAX_DIM] + [(1, 1280)]
     for batch, dim in shapes:
         for dtype in (torch.float32, torch.float64):
             A, L, d, counts = inputs(batch, dim, dtype)

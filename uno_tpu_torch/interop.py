@@ -1,11 +1,12 @@
-"""Carry an IPM state between uno_tpu and the port as numpy arrays.
+"""Carry a solver state between uno_tpu and the port as numpy arrays.
 
-`state_to_numpy` gives a dict keyed by the IPMState field names, the same
-names as uno_tpu's IPMState; "filter" holds the (h, phi, ub) triple and
-"params" an array or None.  `state_from_numpy` takes such a dict, with the
-batch as the leading axis of every array (a single uno_tpu state gets one
-with `arr[None]`), so that a test can start both packages from the same
-iterate."""
+`state_to_numpy` gives a dict keyed by the state's field names, the same
+names as uno_tpu's IPMState and SQPFState; "filter" holds the (h, phi, ub)
+triple and "params" an array or None.  `state_from_numpy` takes such a
+dict, with the batch as the leading axis of every array (a single uno_tpu
+state gets one with `arr[None]`), and the state class (IPMState, the
+default, or sqp_fused.SQPFState), so that a test can start both packages
+from the same iterate."""
 
 from __future__ import annotations
 
@@ -27,9 +28,9 @@ def _tensor(a, device):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def state_from_numpy(fields: dict, device) -> IPMState:
+def state_from_numpy(fields: dict, device, cls=IPMState):
     values = {}
-    for name in IPMState._fields:
+    for name in cls._fields:
         v = fields[name]
         if name == "filter":
             values[name] = FilterState(*(_tensor(a, device) for a in v))
@@ -37,12 +38,12 @@ def state_from_numpy(fields: dict, device) -> IPMState:
             values[name] = None
         else:
             values[name] = _tensor(v, device)
-    return IPMState(**values)
+    return cls(**values)
 
 
-def state_to_numpy(state: IPMState) -> dict:
+def state_to_numpy(state) -> dict:
     out = {}
-    for name, v in zip(IPMState._fields, state):
+    for name, v in zip(type(state)._fields, state):
         if name == "filter":
             out[name] = tuple(t.cpu().numpy() for t in v)
         elif v is None:

@@ -1,19 +1,25 @@
 """The batched LDL^T kernels (csrc/ldlt.cu) and their wrapper.
 
-Counterpart of uno_tpu/linalg/pallas_ldlt.py: two CUDA kernels replace both
-Pallas functions there (`ldlt_factor_pallas`, `ldlt_factor_pallas_batched`),
-routed by dim, the single instance being the batch of one:
+Counterpart of uno_tpu/linalg/pallas_ldlt.py: three CUDA kernels replace
+both Pallas functions there (`ldlt_factor_pallas`,
+`ldlt_factor_pallas_batched`), routed by dim, the single instance being the
+batch of one:
   * `ldlt_warp`   dim <= 32: a group of 8, 16 or 32 lanes per instance;
-  * `ldlt_panel`  dim > 32: panels of 32 columns, a panel kernel and a
+  * `ldlt_column` 32 < dim <= 64: a warp per instance, the column form's
+                  operations in the column form's order;
+  * `ldlt_panel`  dim > 64: panels of 32 columns, a panel kernel and a
                   trailing-update kernel per panel step.
-Both take float32 and float64 and count the inertia themselves.
+All take float32 and float64 and count the inertia themselves.  Each gives
+the plain version's factors bit for bit (`linalg.ldlt.plain_factorizer`:
+the unrolled form up to 32, the column form up to 64, panels above).
 
 The kernels are compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes.  They build on first use into
 uno_tpu_torch/_build/, keyed by a hash of the csrc/ sources.
 
-`plan(batch, dim, dtype)` is the route and the launch sizes of a call; the
-C side refuses a plan it would not make.  `ldlt_factor_cuda(A)` launches
+`plan(batch, dim, dtype)` is the route and the launch sizes of a call
+(`route="ldlt_panel"` forces the panels at dims 33-64, for timing); the C
+side refuses a plan it would not make.  `ldlt_factor_cuda(A)` launches
 the kernels for a CUDA tensor; for a CPU tensor it runs the plain version
 uno_tpu's batch path uses at that dim (`linalg.ldlt.plain_factorizer`),
 the one place where that choice is made.  `launch(A, L, d, pos, neg, zero)`
@@ -41,8 +47,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 MAX_DIM = 46340          # dim * dim must fit the kernels' int indices
-ROUTES = ("ldlt_warp", "ldlt_panel")
-WARP_MAX_DIM = 32        # ldlt_warp up to this dim, ldlt_panel above
+ROUTES = ("ldlt_warp", "ldlt_column", "ldlt_panel")
+WARP_MAX_DIM = 32        # ldlt_warp up to this dim
+COLUMN_MAX_DIM = 64      # ldlt_column up to this dim, ldlt_panel above
+COLUMN_WARPS = 4         # ldlt_column's largest block, in warps (instances)
 PANEL = 32               # ldlt_panel's panel width (PB in ldlt.cu)
 TILE = 64                # its trailing-update tile (32 up to dim 64)
 WARP_THREADS = 256       # ldlt_warp's largest block
@@ -81,8 +89,8 @@ def uncounted():
 class Plan:
     """The launches of one call: `block`, `smem` (dynamic shared memory
     bytes) per kernel of the route, and `grids`, the blocks of every launch
-    in order.  `group` is ldlt_warp's lanes per instance; `rows` is
-    ldlt_panel's rows per chunk."""
+    in order.  `group` is the lanes per instance of ldlt_warp and
+    ldlt_column; `rows` is ldlt_panel's rows per chunk."""
     route: str
     group: int
     rows: int
@@ -99,14 +107,26 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(batch: int, dim: int, dtype: torch.dtype) -> Plan:
+def plan(batch: int, dim: int, dtype: torch.dtype, route: str | None = None) -> Plan:
     """The route and launch sizes of a call on (batch, dim, dim) of dtype;
-    csrc/ldlt.cu computes the same numbers and refuses others."""
+    csrc/ldlt.cu computes the same numbers and refuses others.  `route`
+    None is the dim's own; "ldlt_panel" may also be asked for at dims
+    33-64, where it sums in another order than the column form."""
     if batch < 1 or not 1 <= dim <= MAX_DIM:
         raise ValueError(f"batch {batch}, dim {dim}: expected batch >= 1 and "
                          f"1 <= dim <= {MAX_DIM}")
+    own = ("ldlt_warp" if dim <= WARP_MAX_DIM else
+           "ldlt_column" if dim <= COLUMN_MAX_DIM else "ldlt_panel")
+    route = own if route is None else route
+    if route != own and not (route == "ldlt_panel" and own == "ldlt_column"):
+        raise ValueError(f"route {route!r} does not take dim {dim}")
     item = torch.empty((), dtype=dtype).element_size()
-    if dim <= WARP_MAX_DIM:
+    if route == "ldlt_column":
+        per_instance = dim * (dim | 1) * item    # rows of odd stride
+        warps = min(COLUMN_WARPS, SMEM_DEFAULT // per_instance, batch)
+        return Plan("ldlt_column", 32, 0, (32 * warps,), (warps * per_instance,),
+                    (_ceil(batch, warps),))
+    if route == "ldlt_warp":
         group = 8 if dim <= 8 else (16 if dim <= 16 else 32)
         per_warp = 32 // group
         per_instance = dim * dim * item
@@ -196,6 +216,9 @@ def _load():
         for fn in (lib.uno_ldlt_warp_f32, lib.uno_ldlt_warp_f64):
             fn.argtypes = ptrs + [ctypes.c_int] * 4 + tail
             fn.restype = ctypes.c_int
+        for fn in (lib.uno_ldlt_column_f32, lib.uno_ldlt_column_f64):
+            fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
+            fn.restype = ctypes.c_int
         for fn in (lib.uno_ldlt_panel_f32, lib.uno_ldlt_panel_f64):
             fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
@@ -220,12 +243,12 @@ def _check(A: torch.Tensor) -> None:
 
 def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
            pos: torch.Tensor, neg: torch.Tensor, zero: torch.Tensor,
-           zero_pivot_rtol: float = 1e-32) -> Plan:
+           zero_pivot_rtol: float = 1e-32, route: str | None = None) -> Plan:
     """Launch the route's kernels on the current stream: the factors of A
     (B, dim, dim) on the card into L (B, dim, dim) and d (B, dim) of its
     dtype and device, the inertia into pos, neg and zero (B,) int64.
     Counts the call and the kernels it launched under its route; raises if
-    a launch failed.  Returns the plan."""
+    a launch failed.  Returns the plan.  `route` as in plan()."""
     _check(A)
     if A.device.type != "cuda":
         raise ValueError(f"the kernels run on the card; A is on {A.device}")
@@ -240,7 +263,7 @@ def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
                              f"tensor on {A.device}")
     if batch == 0:
         return None
-    p = plan(batch, dim, A.dtype)
+    p = plan(batch, dim, A.dtype, route)
     lib = _load()
     suffix = "f32" if A.dtype == torch.float32 else "f64"
     ptrs = (A.data_ptr(), L.data_ptr(), d.data_ptr(), pos.data_ptr(),
@@ -251,6 +274,10 @@ def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
         if p.route == "ldlt_warp":
             err = getattr(lib, f"uno_ldlt_warp_{suffix}")(
                 *ptrs, p.group, p.block[0], p.smem[0], p.grids[0], stream,
+                ctypes.byref(launched))
+        elif p.route == "ldlt_column":
+            err = getattr(lib, f"uno_ldlt_column_{suffix}")(
+                *ptrs, p.block[0], p.smem[0], p.grids[0], stream,
                 ctypes.byref(launched))
         else:
             err = getattr(lib, f"uno_ldlt_panel_{suffix}")(

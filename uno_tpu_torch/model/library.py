@@ -1,5 +1,7 @@
-"""Built-in problems in torch: hs015 (uno_tpu/model/library.py:61-75) and
-the flagship batch family of uno_tpu's bench (n variables, m=2)."""
+"""Built-in problems in torch: copies of Hock-Schittkowski problems of
+uno_tpu/model/library.py (hs014, hs015, hs016, hs035, hs038, hs071, hs100)
+with their known optima, and the flagship batch family of uno_tpu's bench
+(n variables, m=2)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,11 @@ import torch
 from uno_tpu_torch.model.nlp import INF, NLP, nlp_from_functions
 
 HS015_OPTIMUM = 306.5
+# the Hock-Schittkowski optima (uno_tpu/model/library.py); hs016 has a
+# second local optimum, 3.9820604541
+OPTIMA = {"hs014": 9.0 - 2.875 * np.sqrt(7.0), "hs015": HS015_OPTIMUM,
+          "hs016": 0.25, "hs035": 1.0 / 9.0, "hs038": 0.0,
+          "hs071": 17.0140173, "hs100": 680.6300573}
 
 
 def hs015() -> NLP:
@@ -26,6 +33,111 @@ def hs015() -> NLP:
         x_lb=[-INF, -INF], x_ub=[0.5, INF],
         c_lb=[1.0, 0.0], c_ub=[INF, INF],
     )
+
+
+def hs014() -> NLP:
+    def f(x):
+        return (x[0] - 2.0) ** 2 + (x[1] - 1.0) ** 2
+
+    def c(x):
+        return torch.stack([
+            x[0] - 2.0 * x[1],                       # == -1
+            -0.25 * x[0] ** 2 - x[1] ** 2 + 1.0,     # >= 0
+        ])
+
+    return nlp_from_functions("hs014", f, c, x0=[2.0, 2.0],
+                              c_lb=[-1.0, 0.0], c_ub=[-1.0, INF])
+
+
+def hs016() -> NLP:
+    def f(x):
+        return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+    def c(x):
+        return torch.stack([x[0] + x[1] ** 2, x[0] ** 2 + x[1]])
+
+    return nlp_from_functions(
+        "hs016", f, c, x0=[-2.0, 1.0],
+        x_lb=[-2.0, -INF], x_ub=[0.5, 1.0],
+        c_lb=[0.0, 0.0], c_ub=[INF, INF],
+    )
+
+
+def hs035() -> NLP:
+    def f(x):
+        return (9.0 - 8.0 * x[0] - 6.0 * x[1] - 4.0 * x[2]
+                + 2.0 * x[0] ** 2 + 2.0 * x[1] ** 2 + x[2] ** 2
+                + 2.0 * x[0] * x[1] + 2.0 * x[0] * x[2])
+
+    def c(x):
+        return torch.stack([3.0 - x[0] - x[1] - 2.0 * x[2]])
+
+    return nlp_from_functions(
+        "hs035", f, c, x0=[0.5, 0.5, 0.5],
+        x_lb=[0.0, 0.0, 0.0], x_ub=[INF, INF, INF],
+        c_lb=[0.0], c_ub=[INF],
+    )
+
+
+def hs038() -> NLP:
+    def f(x):
+        return (100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+                + 90.0 * (x[3] - x[2] ** 2) ** 2 + (1.0 - x[2]) ** 2
+                + 10.1 * ((x[1] - 1.0) ** 2 + (x[3] - 1.0) ** 2)
+                + 19.8 * (x[1] - 1.0) * (x[3] - 1.0))
+
+    return nlp_from_functions(
+        "hs038", f, None, x0=[-3.0, -1.0, -3.0, -1.0],
+        x_lb=[-10.0] * 4, x_ub=[10.0] * 4,
+    )
+
+
+def hs071() -> NLP:
+    def f(x):
+        return x[0] * x[3] * (x[0] + x[1] + x[2]) + x[2]
+
+    def c(x):
+        return torch.stack([
+            x[0] * x[1] * x[2] * x[3],
+            x[0] ** 2 + x[1] ** 2 + x[2] ** 2 + x[3] ** 2,
+        ])
+
+    return nlp_from_functions(
+        "hs071", f, c, x0=[1.0, 5.0, 5.0, 1.0],
+        x_lb=[1.0] * 4, x_ub=[5.0] * 4,
+        c_lb=[25.0, 40.0], c_ub=[INF, 40.0],
+    )
+
+
+def hs100() -> NLP:
+    def f(x):
+        return ((x[0] - 10.0) ** 2 + 5.0 * (x[1] - 12.0) ** 2 + x[2] ** 4
+                + 3.0 * (x[3] - 11.0) ** 2 + 10.0 * x[4] ** 6 + 7.0 * x[5] ** 2
+                + x[6] ** 4 - 4.0 * x[5] * x[6] - 10.0 * x[5] - 8.0 * x[6])
+
+    def c(x):
+        return torch.stack([
+            127.0 - 2.0 * x[0] ** 2 - 3.0 * x[1] ** 4 - x[2] - 4.0 * x[3] ** 2 - 5.0 * x[4],
+            282.0 - 7.0 * x[0] - 3.0 * x[1] - 10.0 * x[2] ** 2 - x[3] + x[4],
+            196.0 - 23.0 * x[0] - x[1] ** 2 - 6.0 * x[5] ** 2 + 8.0 * x[6],
+            -4.0 * x[0] ** 2 - x[1] ** 2 + 3.0 * x[0] * x[1] - 2.0 * x[2] ** 2
+            - 5.0 * x[5] + 11.0 * x[6],
+        ])
+
+    return nlp_from_functions(
+        "hs100", f, c, x0=[1.0, 2.0, 0.0, 4.0, 0.0, 1.0, 1.0],
+        c_lb=[0.0] * 4, c_ub=[INF] * 4,
+    )
+
+
+def get_problem(name: str) -> NLP:
+    """One of the built-in Hock-Schittkowski problems by name."""
+    builders = {"hs014": hs014, "hs015": hs015, "hs016": hs016,
+                "hs035": hs035, "hs038": hs038, "hs071": hs071,
+                "hs100": hs100}
+    if name not in builders:
+        raise KeyError(f"{name!r}: the port's library has {sorted(builders)}")
+    return builders[name]()
 
 
 def flagship(batch: int, n: int = 8, seed: int = 0):

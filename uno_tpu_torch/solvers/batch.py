@@ -1,10 +1,12 @@
-"""Batched IPM driver with per-instance convergence masks.
+"""Batched drivers with per-instance convergence masks: the IPM (ipopt)
+and the fused trust-region SQP family (filtersqp, funnelsqp, filterslp).
 
 Counterpart of uno_tpu/solvers/batch.py: B independent instances of one NLP
 (same functions and shapes, different x0 / params) solved together.  The
 batch is the leading axis of every tensor and the outer loop steps the
 instances that are still running (solvers/ipm.run_ipm), which is the
-semantics of uno_tpu's `vmap(while_loop)`.
+semantics of uno_tpu's `vmap(while_loop)`.  That loop already retires
+converged instances, so the bucketed SQP driver is the plain one.
 
 As in uno_tpu, gradient-based function scaling (scale_functions) uses the
 template instance's scaling (nlp.params at nlp.x0) for the whole batch.
@@ -23,6 +25,11 @@ from uno_tpu_torch.model.nlp import NLP
 from uno_tpu_torch.options import Options, preset as _preset
 from uno_tpu_torch.solvers import ipm as ipm_mod
 from uno_tpu_torch.solvers.ipm import build_ipm, make_initial_state, run_ipm
+
+
+BYRD_NOT_PORTED = (
+    "byrd (the fused l1-relaxation line-search SQP, uno_tpu's "
+    "make_byrd_step) is not ported yet: ROADMAP queue 1, item 3")
 
 
 def resolve_device(device) -> torch.device:
@@ -53,7 +60,8 @@ class BatchResult:
                           | (self.status == ipm_mod.ALMOST_OPTIMAL)))
 
     def status_names(self):
-        return [ipm_mod.STATUS_NAMES[int(s)] for s in self.status]
+        from uno_tpu_torch.solvers.sqp_fused import SQP_STATUS_NAMES
+        return [SQP_STATUS_NAMES[int(s)] for s in self.status]
 
 
 def build_batch_ipm(nlp: NLP, opts: Options, device="cuda"):
@@ -78,24 +86,60 @@ def build_batch_ipm(nlp: NLP, opts: Options, device="cuda"):
     return prob, run
 
 
+def build_batch_sqp(nlp: NLP, opts: Options, device="cuda"):
+    """The fused trust-region SQP family (filtersqp, funnelsqp, filterslp)
+    on a batch; returns (prob, run) like build_batch_ipm, x0_batch (B, n)
+    in the original variable space.  byrd raises NotImplementedError."""
+    from uno_tpu_torch.api import is_byrd_family
+    from uno_tpu_torch.solvers.sqp_fused import (build_sqp_fused,
+                                                 make_initial_sqp_state,
+                                                 run_sqp)
+    if is_byrd_family(opts):
+        raise NotImplementedError(BYRD_NOT_PORTED)
+    device = resolve_device(device)
+    prob, ws, step = build_sqp_fused(nlp, opts)
+
+    def run(x0_batch, params_batch=None):
+        t0 = time.monotonic()
+        x0 = torch.as_tensor(x0_batch, dtype=torch.float64, device=device)
+        params = None if params_batch is None else torch.as_tensor(
+            params_batch, dtype=torch.float64, device=device)
+        state = make_initial_sqp_state(prob, ws, opts, x0, params)
+        return run_sqp(step, state, opts, t0)
+
+    return prob, run
+
+
+def build_bucketed_batch_sqp(nlp: NLP, opts: Options, params_example=None,
+                             segment: int = 8, min_bucket: int = 64,
+                             device="cuda"):
+    """uno_tpu's iteration-count bucketing of the batched SQP, which retires
+    converged lanes of a vmapped loop.  The port's loop steps only the
+    running instances already, so this is build_batch_sqp; the bucketing
+    arguments are accepted and have no effect."""
+    return build_batch_sqp(nlp, opts, device)
+
+
 def solve_batch(nlp: NLP, x0_batch, params_batch=None,
                 opts: Optional[Options] = None, preset: Optional[str] = None,
                 device="cuda", **overrides) -> BatchResult:
-    """Solve a batch of instances with the ipopt interior-point method on
-    `device` (default "cuda"; raises when there is no card)."""
+    """Solve a batch of instances on `device` (default "cuda"; raises when
+    there is no card): the ipopt interior-point method, or the fused
+    trust-region SQP family (filtersqp, funnelsqp, filterslp), by the
+    options' inequality handling."""
     if opts is None:
         opts = _preset(preset or "ipopt", **overrides)
     elif overrides:
         opts = opts.replace(**overrides)
-    if opts.inequality_handling_method != "primal_dual_interior_point":
-        raise NotImplementedError("the port's batch driver runs the "
-                                  "interior-point method (the ipopt preset)")
     t0 = time.monotonic()
     B = int(np.shape(x0_batch)[0])
     if params_batch is None and nlp.params is not None:
         p = np.asarray(nlp.params, dtype=np.float64)
         params_batch = np.broadcast_to(p, (B,) + p.shape)
-    _, run = build_batch_ipm(nlp, opts, device)
+    if opts.inequality_handling_method == "inequality_constrained":
+        _, run = build_batch_sqp(nlp, opts, device)
+    else:
+        _, run = build_batch_ipm(nlp, opts, device)
     final = run(x0_batch, params_batch)
     x_orig = final.x[:, : nlp.n]
     fvals = nlp.objective(x_orig, final.params)
