@@ -7,7 +7,7 @@ the port builds and runs on the card.
 Phases, each with its own wall-clock budget (a phase that fails or
 overruns raises, and the script exits non-zero):
   1. device       a CUDA card is there; prints nvidia-smi's name and power limit
-  2. build        nvcc builds csrc/ldlt.cu (timed)
+  2. build        nvcc builds csrc/ldlt.cu and g++ csrc/nlread.cpp (timed)
   3. kernels      the LDL^T kernels (ldlt_warp up to dim 32, ldlt_column up
                   to 64, ldlt_panel above) against their plain PyTorch
                   versions on the card, at dims 12 to 516 (the route edges
@@ -32,24 +32,36 @@ overruns raises, and the script exits non-zero):
                   solve_batch; the first 64 instances again on the CPU
  11. sqp_single   filtersqp on hs071, funnelsqp and filterslp on hs015, on
                   the card and on the CPU
- 12. summary      the {"kernels": [...]} line (each kernel's launches and
+ 12. byrd_batch   byrd on the flagship family (n=8) at B=8,192 the same way
+ 13. byrd_single  byrd on hs015 and hs071, on the card and on the CPU
+ 14. nl           three .nl fixtures and a binary twin read with read_nl and
+                  solved with ipopt on the card and on the CPU; then the
+                  command line (uno_tpu_torch.__main__.main) with byrd on a
+                  copy of a fixture in a temporary directory
+ 15. summary      the {"kernels": [...]} line (each kernel's launches and
                   wrapper calls on its path, as cuda_ldlt counted them),
                   then the last line {"ok": true, "device": {...}}
-With --profile, the main path's and the SQP path's flagship batches run
-once more under torch.profiler, which prints where their time goes (device
-busy share, kernels and host operators by time).
+With --profile, the flagship batches of the main path and the filtersqp
+path (phase profile), then of the byrd path (phase profile_byrd), run once
+more under torch.profiler, which prints where their time goes (device busy
+share, kernels and host operators by time).
 
 Imports torch, numpy and uno_tpu_torch only.  Starts no child process
-other than nvidia-smi and nvcc, and no thread.
+other than nvidia-smi, nvcc and g++, and no thread.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import shutil
 import signal
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -57,7 +69,8 @@ import numpy as np
 BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 180,
            "main_path": 360, "n32": 240, "n512": 240, "single": 120,
            "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
-           "profile": 600}
+           "byrd_batch": 360, "byrd_single": 180, "nl": 300, "profile": 600,
+           "profile_byrd": 450}
 # the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
 # end two elements into a 16-byte vector
 KERNEL_DIMS = (12, 31, 32, 33, 34, 40, 64, 65, 66, 132, 260, 516)
@@ -69,8 +82,10 @@ KERNEL_BATCH = {12: 65536, 31: 4096, 32: 4096, 33: 4096, 34: 4096, 40: 4096,
 LARGE_DIMS = (640, 1280)
 # the dims of the QP multiplier fits' normal equations (m + 2n of each QP)
 # on the SQP paths: hs015's, hs071's and the flagship's optimality and
-# restoration QPs; uno_tpu factors them with the column form
-FIT_DIMS = (6, 10, 16, 18, 22)
+# restoration QPs (byrd's relaxed QPs have the restoration QPs' widths:
+# 10, 16 and 22), and byrd's on hs015like_n10.nl in the nl phase (35);
+# uno_tpu factors them with the column form
+FIT_DIMS = (6, 10, 16, 18, 22, 35)
 # the kernel against its plain version on the same inputs, entry by entry:
 # |L_k - L_p| <= FACTOR_RTOL * max(|L_p|, 1), and the same for d.  On these
 # matrices a float32 factorization lies up to 4.1e-6 from the float64 one
@@ -145,6 +160,34 @@ SQP_SINGLE = (("filtersqp", "hs071"), ("funnelsqp", "hs015"),
               ("filterslp", "hs015"))
 SQP_SINGLE_KKT_DIM = 6       # hs071's optimality QP, n + m, float64
 SQP_F_ATOL = 1e-8
+# byrd: its relaxed QP has width n + n_el (the elastics: one per inequality,
+# two per equality), so the flagship's KKT has dim 8 + 2 + 2 = 12 (float32
+# in the batch) and its multiplier fit dim 2 + 2 * 10 = 22 (float64);
+# hs071's KKT dim 4 + 3 + 2 = 9 (float64), the largest of the single runs
+BYRD_KKT_DIM = 12
+BYRD_FIT_DIM = 22
+BYRD_SINGLE = (("byrd", "hs015"), ("byrd", "hs071"))
+# the flagship instances of the B=8,192 batch that byrd does not solve: the
+# port and uno_tpu, both on the CPU, end exactly these 9 at the 60-iteration
+# cap (8,183 solved; uno_tpu's TPU bench recorded 8,183 too, BENCH_r05.json),
+# so the byrd phase holds the card to this set in place of a solved share
+BYRD_UNSOLVED = (653, 2605, 2666, 4010, 4812, 5402, 6092, 6811, 8057)
+BYRD_SINGLE_KKT_DIM = 9
+# the .nl path: fixtures read by the port's parser and solved with ipopt
+# (KKT dims 100, 73 and 50, float64: ldlt_panel, ldlt_panel, ldlt_column),
+# the binary twin of one of them; then the command line with byrd on a copy
+# of hs015like_n10.nl (relaxed-QP KKT dim 10 + 5 + 5 = 20, fit dim 35).
+# Card against CPU: equal status and iterations, objective within
+# NL_F_TOL * max(|f|, 1); the command line's .sol x against solve()'s on
+# the card, within NL_SOL_ATOL
+NL_DIR = Path(__file__).resolve().parent / "tests" / "fixtures" / "nl"
+NL_FIXTURES = ("hs015like_n50.nl", "catena_n48.nl", "srosenbr_n50.nl",
+               "catena_n48.bin.nl")
+NL_KKT_DIMS = {"ldlt_panel": 100, "ldlt_column": 50}
+NL_CLI_FIXTURE = "hs015like_n10.nl"
+NL_CLI_KKT_DIM = 20
+NL_F_TOL = 1e-8
+NL_SOL_ATOL = 1e-12
 
 
 class PhaseTimeout(Exception):
@@ -197,6 +240,7 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    from uno_tpu_torch.io import nl as nl_io
     from uno_tpu_torch.linalg import cuda_ldlt
     t0 = time.monotonic()
     path = cuda_ldlt.build()
@@ -205,7 +249,12 @@ def phase_build():
     for line in cuda_ldlt.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print("  " + line.strip(), flush=True)
-    return {"seconds": seconds, "library": path.name}
+    t0 = time.monotonic()
+    nl_path = nl_io.build()
+    nl_seconds = time.monotonic() - t0
+    print(f"built {nl_path.name} in {nl_seconds:.2f} s", flush=True)
+    return {"seconds": seconds, "library": path.name,
+            "nlread_seconds": nl_seconds, "nlread_library": nl_path.name}
 
 
 # ---------------------------------------------------------------------------
@@ -649,28 +698,32 @@ def phase_single_large(device="cuda", n=LARGE_N):
     return out
 
 
-def sqp_options():
-    """uno_tpu's bench options for the fused filtersqp batch (bench.py:113)."""
-    from uno_tpu_torch.options import preset
-    return preset("filtersqp", scale_functions=False, kkt_dtype="float32",
-                  max_iterations=SQP_MAX_ITERATIONS)
+def sqp_options(preset="filtersqp"):
+    """uno_tpu's bench options for the fused SQP batches (bench.py:113-114
+    for filtersqp, bench.py:126-127 for byrd)."""
+    from uno_tpu_torch.options import preset as make
+    return make(preset, scale_functions=False, kkt_dtype="float32",
+                max_iterations=SQP_MAX_ITERATIONS)
 
 
 def phase_sqp_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN,
-                    min_solved=0.999):
-    """filtersqp on the flagship batch (n=8) on `device` through
-    solve_batch, then the first `rerun` instances on the CPU; raise unless
-    the results are finite, at least `min_solved` of them solved, ldlt_warp
-    launched, and the CPU run agrees (equal status and iterations, x within
-    X_ATOL)."""
+                    min_solved=0.999, preset="filtersqp", unsolved=None):
+    """`preset` (filtersqp or byrd) on the flagship batch (n=8) on `device`
+    through solve_batch, then the first `rerun` instances on the CPU; raise
+    unless the results are finite, at least `min_solved` of them solved
+    (or, where `unsolved` is given, every instance solved but exactly
+    those), ldlt_warp launched, and the CPU run agrees (equal status and
+    iterations, x within X_ATOL)."""
     import torch
     import uno_tpu_torch
     from uno_tpu_torch.linalg import cuda_ldlt
     from uno_tpu_torch.model.library import flagship
     from uno_tpu_torch.solvers import qp
+    from uno_tpu_torch.solvers.ipm import ALMOST_OPTIMAL, OPTIMAL
 
     nlp, x0, params = flagship(batch)
-    opts = sqp_options()
+    opts = sqp_options(preset)
+    tag = f"SQP path ({preset})"
     cuda_ldlt.reset_counts()
     qp.reset_counts()
     t0 = time.monotonic()
@@ -679,9 +732,12 @@ def phase_sqp_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN,
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
     by_route = dict(cuda_ldlt.launches)
+    calls = dict(cuda_ldlt.calls)
     qp_counts = dict(qp.counts)
-    out = {"preset": "filtersqp", "batch": batch, "n": 8,
-           "qp_kkt_dim": SQP_KKT_DIM, "fit_dim": SQP_FIT_DIM,
+    iterations = int(np.sum(res.iterations))
+    out = {"preset": preset, "batch": batch, "n": 8,
+           "qp_kkt_dim": BYRD_KKT_DIM if preset == "byrd" else SQP_KKT_DIM,
+           "fit_dim": BYRD_FIT_DIM if preset == "byrd" else SQP_FIT_DIM,
            "solved": res.num_solved,
            "statuses": {k: int(v) for k, v in zip(*np.unique(
                res.status_names(), return_counts=True))},
@@ -689,19 +745,26 @@ def phase_sqp_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN,
            "max_iterations": int(np.max(res.iterations)),
            "wall_s": wall, "solves_per_s": batch / wall,
            "qp_solves": qp_counts["solves"],
-           "mean_attempts": qp_counts["instances"] / batch,
-           "mean_qp_iterations_per_attempt":
+           "qps_per_instance": qp_counts["instances"] / batch,
+           "qps_per_iteration": qp_counts["instances"] / max(iterations, 1),
+           "qp_iterations_per_qp":
                qp_counts["iterations"] / max(qp_counts["instances"], 1),
            "launches": sum(by_route.values()), "launches_by_route": by_route,
-           "calls_by_route": dict(cuda_ldlt.calls)}
+           "calls_by_route": calls}
+    failed = np.nonzero((res.status != OPTIMAL) & (res.status != ALMOST_OPTIMAL))[0]
+    out["unsolved"] = failed.tolist()[:32]
     print(json.dumps(out), flush=True)
     if torch.device(device).type == "cuda" and by_route["ldlt_warp"] <= 0:
-        raise AssertionError("the SQP path launched ldlt_warp 0 times")
+        raise AssertionError(f"the {tag} launched ldlt_warp 0 times")
     if res.x.shape != (batch, nlp.n) or not np.all(np.isfinite(res.x)) \
             or not np.all(np.isfinite(res.objective)):
-        raise AssertionError("SQP path: non-finite or misshapen solutions")
-    if res.num_solved < min_solved * batch:
-        raise AssertionError(f"SQP path: only {res.num_solved}/{batch} solved")
+        raise AssertionError(f"{tag}: non-finite or misshapen solutions")
+    if unsolved is not None:
+        if tuple(failed.tolist()) != tuple(i for i in unsolved if i < batch):
+            raise AssertionError(f"{tag}: unsolved {failed.tolist()[:32]}, "
+                                 f"expected {list(unsolved)}")
+    elif res.num_solved < min_solved * batch:
+        raise AssertionError(f"{tag}: only {res.num_solved}/{batch} solved")
 
     k = min(rerun, batch)
     ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts,
@@ -715,67 +778,181 @@ def phase_sqp_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN,
         "cpu_rerun", "status_equal", "iterations_equal", "iterations_max_diff",
         "x_max_abs_diff")}), flush=True)
     if not np.array_equal(ref.status, res.status[:k]):
-        raise AssertionError("SQP path: status differs from the CPU run")
+        raise AssertionError(f"{tag}: status differs from the CPU run")
     if diff.max() > ITERATION_SLACK:
-        raise AssertionError(f"SQP path: iterations differ by {diff.max()} "
+        raise AssertionError(f"{tag}: iterations differ by {diff.max()} "
                              "from the CPU run")
     if not x_err <= X_ATOL:
-        raise AssertionError(f"SQP path: x differs by {x_err:.3e} from the CPU run")
+        raise AssertionError(f"{tag}: x differs by {x_err:.3e} from the CPU run")
     return out
 
 
-def phase_sqp_single(device="cuda"):
-    """filtersqp on hs071, funnelsqp and filterslp on hs015 through solve()
-    on `device` and on the CPU: equal status and iterations, objectives
-    within SQP_F_ATOL, ldlt_warp launched on the card."""
+def phase_byrd_batch(device="cuda", batch=SQP_BATCH, rerun=SQP_RERUN):
+    """byrd on the flagship batch, as phase_sqp_batch runs filtersqp, held
+    to the reference's unsolved instances."""
+    return phase_sqp_batch(device, batch, rerun, preset="byrd",
+                           unsolved=BYRD_UNSOLVED)
+
+
+def phase_sqp_single(device="cuda", runs=SQP_SINGLE):
+    """Each (preset, problem) of `runs` through solve() on `device` and on
+    the CPU: equal status and iterations, objectives within SQP_F_ATOL,
+    ldlt_warp launched on the card."""
     import uno_tpu_torch
     from uno_tpu_torch.linalg import cuda_ldlt
     from uno_tpu_torch.model.library import get_problem
 
-    runs = []
+    done = []
     cuda_ldlt.reset_counts()
     t0 = time.monotonic()
-    for preset, name in SQP_SINGLE:
+    for preset, name in runs:
         res = uno_tpu_torch.solve(get_problem(name), preset=preset, device=device)
-        runs.append((preset, name, res))
+        done.append((preset, name, res))
     wall = time.monotonic() - t0
     out = {"wall_s": wall, "launches": sum(cuda_ldlt.launches.values()),
            "launches_by_route": dict(cuda_ldlt.launches),
            "calls_by_route": dict(cuda_ldlt.calls), "runs": []}
-    for preset, name, res in runs:
+    for preset, name, res in done:
         ref = uno_tpu_torch.solve(get_problem(name), preset=preset, device="cpu")
         out["runs"].append({"preset": preset, "problem": name,
                             "status": res.status, "iterations": res.iterations,
+                            "qps": res.num_subproblems_solved,
                             "objective": res.objective,
                             "cpu_status": ref.status,
                             "cpu_iterations": ref.iterations,
+                            "cpu_qps": ref.num_subproblems_solved,
                             "objective_diff": res.objective - ref.objective})
     print(json.dumps(out), flush=True)
     if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
         raise AssertionError("the SQP single instances launched ldlt_warp 0 times")
     for r in out["runs"]:
-        if (r["status"], r["iterations"]) != (r["cpu_status"], r["cpu_iterations"]) \
+        if (r["status"], r["iterations"], r["qps"]) \
+                != (r["cpu_status"], r["cpu_iterations"], r["cpu_qps"]) \
                 or not abs(r["objective_diff"]) <= SQP_F_ATOL \
                 or r["status"] != "optimal":
             raise AssertionError(f"SQP single instance: {r}")
     return out
 
 
+def phase_byrd_single(device="cuda"):
+    """byrd on hs015 and hs071, as phase_sqp_single runs the other presets."""
+    return phase_sqp_single(device, BYRD_SINGLE)
+
+
+def read_sol_x(path, n):
+    """The primal values of a .sol file that __main__.write_sol wrote: its
+    last n lines."""
+    return np.array([float(v) for v in Path(path).read_text().splitlines()[-n:]])
+
+
+def phase_nl(device="cuda"):
+    """The .nl path: NL_FIXTURES read with the port's parser and solved
+    with ipopt on `device`, then the command line with preset=byrd on a
+    copy of NL_CLI_FIXTURE in a temporary directory (its .sol is written
+    there) and solve() of the same model; then the ipopt solves again on
+    the CPU.  Raise unless the card and the CPU agree (equal status and
+    iterations, objective within NL_F_TOL), the command line exits 0 with
+    the .sol's x within NL_SOL_ATOL of solve()'s, and the card launched
+    ldlt_panel, ldlt_column and ldlt_warp."""
+    import uno_tpu_torch
+    from uno_tpu_torch import __main__ as cli
+    from uno_tpu_torch.io import read_nl
+    from uno_tpu_torch.linalg import cuda_ldlt
+
+    cuda_ldlt.reset_counts()
+    t0 = time.monotonic()
+    runs = []
+    for name in NL_FIXTURES:
+        nlp = read_nl(NL_DIR / name)
+        runs.append((name, nlp, uno_tpu_torch.solve(nlp, preset="ipopt", device=device)))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = Path(tmp) / NL_CLI_FIXTURE
+        shutil.copy(NL_DIR / NL_CLI_FIXTURE, model)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([str(model), "-AMPL", "preset=byrd", f"device={device}"])
+        nlp_cli = read_nl(model)
+        x_sol = read_sol_x(model.with_suffix(".sol"), nlp_cli.n)
+        direct = uno_tpu_torch.solve(nlp_cli, preset="byrd", device=device)
+    wall = time.monotonic() - t0
+    out = {"wall_s": wall, "launches": sum(cuda_ldlt.launches.values()),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "runs": [],
+           "cli": {"model": NL_CLI_FIXTURE, "preset": "byrd", "exit_code": rc,
+                   "status": direct.status, "iterations": direct.iterations,
+                   "objective": direct.objective,
+                   "sol_x_max_abs_diff": float(np.max(np.abs(x_sol - direct.x))),
+                   "printed": [line for line in printed.getvalue().splitlines()
+                               if line.startswith(("status", "objective", "iterations"))]}}
+    for name, nlp, res in runs:
+        ref = uno_tpu_torch.solve(nlp, preset="ipopt", device="cpu")
+        out["runs"].append({"model": name, "n": nlp.n, "m": nlp.m,
+                            "status": res.status, "iterations": res.iterations,
+                            "objective": res.objective, "cpu_status": ref.status,
+                            "cpu_iterations": ref.iterations,
+                            "objective_diff": res.objective - ref.objective,
+                            "objective_tol": NL_F_TOL * max(abs(ref.objective), 1.0)})
+    print(json.dumps(out), flush=True)
+    if device != "cpu":
+        for route in ("ldlt_panel", "ldlt_column", "ldlt_warp"):
+            if out["launches_by_route"][route] <= 0:
+                raise AssertionError(f"the nl path launched {route} 0 times")
+    for r in out["runs"]:
+        if (r["status"], r["iterations"]) != (r["cpu_status"], r["cpu_iterations"]) \
+                or not abs(r["objective_diff"]) <= r["objective_tol"] \
+                or r["status"] != "optimal":
+            raise AssertionError(f"nl path: {r}")
+    c = out["cli"]
+    if c["exit_code"] != 0 or c["status"] != "optimal" \
+            or not c["sol_x_max_abs_diff"] <= NL_SOL_ATOL:
+        raise AssertionError(f"nl path, command line: {c}")
+    return out
+
+
 def phase_profile(top=12):
-    """The flagship batch of the main path and of the SQP path once more
-    each, under torch.profiler.  The SQP path's host operators are not
-    traced: its million-odd host events would take the profiler longer to
+    """The flagship batch of the main path and of the filtersqp path once
+    more each, under torch.profiler.  The SQP path's host operators are not
+    traced: their million-odd host events would take the profiler longer to
     sum than the phase's budget."""
     return {"ipopt": profile_batch(MAIN_BATCH, main_path_options(), top),
-            "filtersqp": profile_batch(SQP_BATCH, sqp_options(), top,
+            "filtersqp": profile_batch(SQP_BATCH, sqp_options("filtersqp"), top,
                                        host_ops=False)}
+
+
+def phase_profile_byrd(top=12):
+    """The byrd flagship batch once more under torch.profiler, device
+    activity only, as phase_profile profiles filtersqp's (the profiler's
+    summing of its events takes most of the phase)."""
+    return {"byrd": profile_batch(SQP_BATCH, sqp_options("byrd"), top,
+                                  host_ops=False)}
+
+
+def cholesky_ms(batch, n, seed=11):
+    """ms of an eager torch.linalg.cholesky_ex call (the host's launch time
+    included: the library's batched Cholesky need not be capturable in a CUDA graph)
+    on `batch` seeded positive-definite (n, n) float64 matrices on the
+    card, byrd's test of its Hessians in the primal regularization (a
+    library call, not a kernel of the port)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((batch, n, n))
+    H = torch.as_tensor(M @ np.swapaxes(M, 1, 2) + n * np.eye(n), device="cuda")
+    return eager_ms(lambda: torch.linalg.cholesky_ex(H))
+
+
+# device kernels summed by name under --profile: the port's LDL^T kernels,
+# and the library Cholesky (cuSOLVER's potrf) of byrd's primal
+# regularization, which uno_tpu computes outside Pallas too
+KERNEL_GROUPS = {"ldlt (csrc/ldlt.cu)": ("ldlt",),
+                 "cholesky_ex (library)": ("potrf", "potf", "chol")}
 
 
 def profile_batch(batch, opts, top, host_ops=True):
     """The flagship batch under torch.profiler: the device's busy time (the
     sum of its kernels' times; one stream, so they do not overlap) against
-    the wall time, and the kernels and (with `host_ops`) the host operators
-    that take the most time."""
+    the wall time, the kernels of each KERNEL_GROUPS group summed, and the
+    kernels and (with `host_ops`) the host operators that take the most
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -800,10 +977,17 @@ def profile_batch(batch, opts, top, host_ops=True):
     device_rows.sort(reverse=True)
     host_rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in device_rows)
+    groups = {}
+    for group, keys in KERNEL_GROUPS.items():
+        rows = [r for r in device_rows if any(k in r[2].lower() for k in keys)]
+        groups[group] = {"ms": sum(r[0] for r in rows),
+                         "launches": int(sum(r[1] for r in rows)),
+                         "kernels": sorted({r[2][:60] for r in rows})}
     out = {"batch": batch, "iterations_max": int(np.max(res.iterations)),
            "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "kernel_launches": int(sum(r[1] for r in device_rows)),
+           "groups": groups,
            "device_top": [{"ms": r[0], "count": r[1], "name": r[2][:90]}
                           for r in device_rows[:top]],
            "host_top": [{"self_ms": r[0], "count": r[1], "name": r[2][:60]}
@@ -812,6 +996,10 @@ def profile_batch(batch, opts, top, host_ops=True):
     if busy_ms <= 0.0:
         raise AssertionError("the profiler saw no device time")
     return out
+
+
+BATCHED = "uno_tpu/linalg/pallas_ldlt.py:206"   # ldlt_factor_pallas_batched's pallas_call
+SINGLE = "uno_tpu/linalg/pallas_ldlt.py:247"    # ldlt_factor_pallas's pallas_call
 
 
 def kernel_entry(name, replaces, path, route, row, **extra):
@@ -854,7 +1042,13 @@ def main(argv=None):
     single_large = run_phase("single_large", phase_single_large)
     sqp_batch = run_phase("sqp_batch", phase_sqp_batch)
     sqp_single = run_phase("sqp_single", phase_sqp_single)
-    profiled = run_phase("profile", phase_profile) if args.profile else None
+    byrd_batch = run_phase("byrd_batch", phase_byrd_batch)
+    byrd_single = run_phase("byrd_single", phase_byrd_single)
+    nl = run_phase("nl", phase_nl)
+    profiled = None
+    if args.profile:
+        profiled = run_phase("profile", phase_profile)
+        profiled.update(run_phase("profile_byrd", phase_profile_byrd))
 
     # the kernels at the paths' own shapes: the flagship's KKT (dim 12,
     # float32) at the full batch, hs015's (dim 6, float64) alone, and from
@@ -872,6 +1066,17 @@ def main(argv=None):
     n32_row = check_kernel(N32_BATCH, N32_KKT_DIM, "float32", seed=3)
     sqp_row = check_kernel(SQP_BATCH, SQP_KKT_DIM, "float32", seed=4)
     fit_row = check_kernel(SQP_BATCH, SQP_FIT_DIM, "float64", seed=5)
+    # byrd: the batch's relaxed-QP KKT (dim 12, float32) and its fit's shape
+    # (dim 22, float64); the single runs' largest KKT, hs071's (dim 9,
+    # float64); the nl path's ipopt KKTs (dims 100 and 50, float64) and the
+    # command line's byrd KKT (dim 20, float64)
+    byrd_row = check_kernel(SQP_BATCH, BYRD_KKT_DIM, "float32", seed=6)
+    byrd_fit_row = check_kernel(SQP_BATCH, BYRD_FIT_DIM, "float64", seed=7)
+    byrd_single_row = check_kernel(1, BYRD_SINGLE_KKT_DIM, "float64", seed=8)
+    nl_rows = {route: check_kernel(1, dim, "float64", seed=9)
+               for route, dim in NL_KKT_DIMS.items()}
+    nl_cli_row = check_kernel(1, NL_CLI_KKT_DIM, "float64", seed=10)
+    chol_ms = cholesky_ms(SQP_BATCH, 8)
 
     def row_of(rows, batch, dim, dtype_name):
         return next(r for r in rows if (r["batch"], r["dim"], r.get("dtype"))
@@ -883,28 +1088,33 @@ def main(argv=None):
             "shape": [row["batch"], row["dim"], row["dim"]]}
 
     kernels = [
-        kernel_entry("ldlt_warp (batched path)",
-                     "uno_tpu/linalg/pallas_ldlt.py:190", main_path,
+        kernel_entry("ldlt_warp (batched path)", BATCHED, main_path,
                      "ldlt_warp", batched),
-        kernel_entry("ldlt_warp (single-instance path)",
-                     "uno_tpu/linalg/pallas_ldlt.py:230", single,
+        kernel_entry("ldlt_warp (single-instance path)", SINGLE, single,
                      "ldlt_warp", single_row),
-        kernel_entry("ldlt_panel (batched path, n=512)",
-                     "uno_tpu/linalg/pallas_ldlt.py:190", n512, "ldlt_panel",
-                     row_of(sweep, N512_BATCH, N512_KKT_DIM, "float32")),
-        kernel_entry("ldlt_panel (single-instance path, dim 1280)",
-                     "uno_tpu/linalg/pallas_ldlt.py:230", single_large,
-                     "ldlt_panel", row_of(large, 1, LARGE_KKT_DIM, "float64")),
-        kernel_entry("ldlt_column (batched path, n=32)",
-                     "uno_tpu/linalg/pallas_ldlt.py:190", n32, "ldlt_column",
-                     n32_row, panel_ms=n32_row["panel_ms"],
+        kernel_entry("ldlt_panel (batched path, n=512)", BATCHED, n512,
+                     "ldlt_panel", row_of(sweep, N512_BATCH, N512_KKT_DIM, "float32")),
+        kernel_entry("ldlt_panel (single-instance path, dim 1280)", SINGLE,
+                     single_large, "ldlt_panel",
+                     row_of(large, 1, LARGE_KKT_DIM, "float64")),
+        kernel_entry("ldlt_column (batched path, n=32)", BATCHED, n32,
+                     "ldlt_column", n32_row, panel_ms=n32_row["panel_ms"],
                      panel_factor_gap=n32_row["panel_factor_gap"]),
-        kernel_entry("ldlt_warp (SQP batched path, filtersqp)",
-                     "uno_tpu/linalg/pallas_ldlt.py:190", sqp_batch,
-                     "ldlt_warp", sqp_row, multiplier_fit=at(fit_row)),
-        kernel_entry("ldlt_warp (SQP single-instance path)",
-                     "uno_tpu/linalg/pallas_ldlt.py:230", sqp_single,
-                     "ldlt_warp", single_row),
+        kernel_entry("ldlt_warp (SQP batched path, filtersqp)", BATCHED,
+                     sqp_batch, "ldlt_warp", sqp_row, multiplier_fit=at(fit_row)),
+        kernel_entry("ldlt_warp (SQP single-instance path)", SINGLE,
+                     sqp_single, "ldlt_warp", single_row),
+        kernel_entry("ldlt_warp (byrd batched path)", BATCHED, byrd_batch,
+                     "ldlt_warp", byrd_row, multiplier_fit=at(byrd_fit_row),
+                     primal_regularization_cholesky_ms=chol_ms),
+        kernel_entry("ldlt_warp (byrd single-instance path)", SINGLE,
+                     byrd_single, "ldlt_warp", byrd_single_row),
+        kernel_entry("ldlt_panel (nl path, ipopt)", SINGLE, nl, "ldlt_panel",
+                     nl_rows["ldlt_panel"]),
+        kernel_entry("ldlt_column (nl path, ipopt)", SINGLE, nl, "ldlt_column",
+                     nl_rows["ldlt_column"]),
+        kernel_entry("ldlt_warp (nl path, byrd command line)", SINGLE, nl,
+                     "ldlt_warp", nl_cli_row),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
@@ -914,9 +1124,12 @@ def main(argv=None):
                        "kernels_large": large, "main_path": main_path,
                        "n32": n32, "n512": n512, "single": single,
                        "single_large": single_large, "sqp_batch": sqp_batch,
-                       "sqp_single": sqp_single,
-                       "path_kernels": [batched, single_row, n32_row,
-                                        sqp_row, fit_row],
+                       "sqp_single": sqp_single, "byrd_batch": byrd_batch,
+                       "byrd_single": byrd_single, "nl": nl,
+                       "path_kernels": [batched, single_row, n32_row, sqp_row,
+                                        fit_row, byrd_row, byrd_fit_row,
+                                        byrd_single_row, *nl_rows.values(),
+                                        nl_cli_row],
                        "profile": profiled, "kernels": kernels,
                        "total_s": total}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

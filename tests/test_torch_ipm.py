@@ -177,7 +177,21 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         uno_tpu_torch.solve(hs015(), preset="ipopt")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         uno_tpu_torch.solve(hs015(), preset="filtersqp")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uno_tpu_torch.solve(hs015(), preset="byrd")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uno_tpu_torch.solve_batch(nlp, x0, p, preset="byrd")
+    # on the CPU, byrd reaches the fused byrd driver
+    from uno_tpu_torch.solvers import sqp_fused
+
+    class Routed(Exception):
+        pass
+
+    def routed(*args, **kwargs):
+        raise Routed
+
+    monkeypatch.setattr(sqp_fused, "solve_byrd_fused", routed)
+    with pytest.raises(Routed):
         uno_tpu_torch.solve(hs015(), preset="byrd", device="cpu")
 
 
@@ -189,6 +203,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "import uno_tpu_torch.linalg.cuda_ldlt, uno_tpu_torch.model.library\n"
         "import uno_tpu_torch.solvers.qp, uno_tpu_torch.solvers.sqp_fused\n"
         "import uno_tpu_torch.solvers.batch, uno_tpu_torch.api\n"
+        "import uno_tpu_torch.io.nl, uno_tpu_torch.model.library_nl\n"
+        "import uno_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules if m == 'uno_tpu' or m.startswith('uno_tpu.')\n"
         "       or (m.startswith('jax.') or m == 'jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

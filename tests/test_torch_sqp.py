@@ -181,15 +181,30 @@ def test_flagship_filtersqp_batch_matches_uno_tpu_batch(rows):
     assert solved.tolist() == [int(i) not in UNSOLVED for i in idx]
 
 
-def test_byrd_and_host_drivers_raise_not_implemented():
+def test_byrd_and_host_drivers_raise_not_implemented(monkeypatch):
+    """The host SQP drivers still raise; byrd routes to the fused byrd
+    driver in solve and solve_batch, and is_byrd_family agrees with
+    uno_tpu's on every preset."""
     tn = t_problem("hs015")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        uno_tpu_torch.solve(tn, preset="byrd", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         uno_tpu_torch.solve(tn, preset="filtersqp", sqp_driver="host", device="cpu")
-    nlp, x0, p = flagship(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        uno_tpu_torch.solve(tn, preset="byrd", sqp_driver="host", device="cpu")
+
+    class Routed(Exception):
+        pass
+
+    def routed(*args, **kwargs):
+        raise Routed
+
+    monkeypatch.setattr(tsqp, "solve_byrd_fused", routed)
+    monkeypatch.setattr(tsqp, "build_byrd_fused", routed)
+    with pytest.raises(Routed):
+        uno_tpu_torch.solve(tn, preset="byrd", device="cpu")
+    nlp, x0, p = flagship(2)
+    with pytest.raises(Routed):
         uno_tpu_torch.solve_batch(nlp, x0, p, preset="byrd", device="cpu")
+    assert uno_tpu_torch.solve(tn, preset="filtersqp", device="cpu").status == "optimal"
     from uno_tpu.api import is_byrd_family as j_is_byrd
     from uno_tpu_torch.api import is_byrd_family as t_is_byrd
     for name in ("ipopt", "filtersqp", "byrd", "funnelsqp", "filterslp"):

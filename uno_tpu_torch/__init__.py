@@ -2,8 +2,10 @@
 
 It solves smooth nonconvex NLPs
     min f(x)  s.t.  cL <= c(x) <= cU,  xL <= x <= xU
-with the `ipopt` preset's primal-dual interior-point method, one instance
-(`solve`) or a batch of instances of one problem (`solve_batch`).  The
+with the `ipopt` preset's primal-dual interior-point method or the fused
+SQP presets (`filtersqp`, `funnelsqp`, `filterslp`, `byrd`), one instance
+(`solve`) or a batch of instances of one problem (`solve_batch`); AMPL
+models come in through `io.read_nl` and `python -m uno_tpu_torch`.  The
 batch is an explicit leading axis with per-instance RUNNING masks;
 derivatives come from torch.func in float64; the KKT factorization is an
 unpivoted LDL^T whose pivot signs give the inertia, a hand-written CUDA

@@ -1,7 +1,7 @@
 """Top-level solve API (the reference's Uno::solve, Uno.cpp:44-98);
 counterpart of uno_tpu/api.py.  Routes the ipopt preset to the
-interior-point solver and filtersqp, funnelsqp and filterslp to the fused
-trust-region SQP driver."""
+interior-point solver, filtersqp, funnelsqp and filterslp to the fused
+trust-region SQP driver, and byrd to the fused line-search SQP driver."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 
 from uno_tpu_torch.model.nlp import NLP
 from uno_tpu_torch.options import Options, preset as _preset
-from uno_tpu_torch.solvers.batch import BYRD_NOT_PORTED, resolve_device
+from uno_tpu_torch.solvers.batch import resolve_device
 from uno_tpu_torch.solvers.ipm import Result, solve_ipm
 
 HOST_SQP_NOT_PORTED = (
@@ -100,8 +100,8 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
           callbacks=None, history=False, device="cuda", **overrides) -> Result:
     """Solve one NLP on `device` (default "cuda"; raises when there is no
     card).  Either pass `options`, or a `preset` name ("ipopt",
-    "filtersqp", "funnelsqp", "filterslp"; "byrd" is not ported) with
-    keyword overrides."""
+    "filtersqp", "byrd", "funnelsqp", "filterslp") with keyword
+    overrides."""
     if options is None:
         options = _preset(preset or "ipopt", **overrides)
     elif overrides:
@@ -123,10 +123,8 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
                           == "feasibility_restoration")))
         if not fused:
             raise NotImplementedError(HOST_SQP_NOT_PORTED)
-        if byrd:
-            raise NotImplementedError(BYRD_NOT_PORTED)
-        from uno_tpu_torch.solvers.sqp_fused import solve_sqp_fused
-        run = solve_sqp_fused
+        from uno_tpu_torch.solvers import sqp_fused
+        run = sqp_fused.solve_byrd_fused if byrd else sqp_fused.solve_sqp_fused
     early = _preflight(nlp)
     if early is not None:
         return early

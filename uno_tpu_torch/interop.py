@@ -1,12 +1,12 @@
 """Carry a solver state between uno_tpu and the port as numpy arrays.
 
 `state_to_numpy` gives a dict keyed by the state's field names, the same
-names as uno_tpu's IPMState and SQPFState; "filter" holds the (h, phi, ub)
-triple and "params" an array or None.  `state_from_numpy` takes such a
-dict, with the batch as the leading axis of every array (a single uno_tpu
-state gets one with `arr[None]`), and the state class (IPMState, the
-default, or sqp_fused.SQPFState), so that a test can start both packages
-from the same iterate."""
+names as uno_tpu's IPMState, SQPFState and ByrdFState; "filter" holds the
+(h, phi, ub) triple and "params" an array or None.  `state_from_numpy`
+takes such a dict, with the batch as the leading axis of every array (a
+single uno_tpu state gets one with `arr[None]`), and the state class
+(IPMState, the default, sqp_fused.SQPFState or sqp_fused.ByrdFState), so
+that a test can start both packages from the same iterate."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Batched drivers with per-instance convergence masks: the IPM (ipopt)
-and the fused trust-region SQP family (filtersqp, funnelsqp, filterslp).
+and the fused SQP drivers (filtersqp, funnelsqp, filterslp, byrd).
 
 Counterpart of uno_tpu/solvers/batch.py: B independent instances of one NLP
 (same functions and shapes, different x0 / params) solved together.  The
@@ -25,11 +25,6 @@ from uno_tpu_torch.model.nlp import NLP
 from uno_tpu_torch.options import Options, preset as _preset
 from uno_tpu_torch.solvers import ipm as ipm_mod
 from uno_tpu_torch.solvers.ipm import build_ipm, make_initial_state, run_ipm
-
-
-BYRD_NOT_PORTED = (
-    "byrd (the fused l1-relaxation line-search SQP, uno_tpu's "
-    "make_byrd_step) is not ported yet: ROADMAP queue 1, item 3")
 
 
 def resolve_device(device) -> torch.device:
@@ -87,25 +82,30 @@ def build_batch_ipm(nlp: NLP, opts: Options, device="cuda"):
 
 
 def build_batch_sqp(nlp: NLP, opts: Options, device="cuda"):
-    """The fused trust-region SQP family (filtersqp, funnelsqp, filterslp)
-    on a batch; returns (prob, run) like build_batch_ipm, x0_batch (B, n)
-    in the original variable space.  byrd raises NotImplementedError."""
+    """The fused SQP drivers on a batch: the trust-region family
+    (filtersqp, funnelsqp, filterslp) or byrd, by the options; returns
+    (prob, run) like build_batch_ipm, x0_batch (B, n) in the original
+    variable space."""
     from uno_tpu_torch.api import is_byrd_family
-    from uno_tpu_torch.solvers.sqp_fused import (build_sqp_fused,
-                                                 make_initial_sqp_state,
-                                                 run_sqp)
+    from uno_tpu_torch.solvers import sqp_fused
     if is_byrd_family(opts):
-        raise NotImplementedError(BYRD_NOT_PORTED)
+        build, make_initial, run_loop = (sqp_fused.build_byrd_fused,
+                                         sqp_fused.make_initial_byrd_state,
+                                         sqp_fused.run_byrd)
+    else:
+        build, make_initial, run_loop = (sqp_fused.build_sqp_fused,
+                                         sqp_fused.make_initial_sqp_state,
+                                         sqp_fused.run_sqp)
     device = resolve_device(device)
-    prob, ws, step = build_sqp_fused(nlp, opts)
+    prob, ws, step = build(nlp, opts)
 
     def run(x0_batch, params_batch=None):
         t0 = time.monotonic()
         x0 = torch.as_tensor(x0_batch, dtype=torch.float64, device=device)
         params = None if params_batch is None else torch.as_tensor(
             params_batch, dtype=torch.float64, device=device)
-        state = make_initial_sqp_state(prob, ws, opts, x0, params)
-        return run_sqp(step, state, opts, t0)
+        state = make_initial(prob, ws, opts, x0, params)
+        return run_loop(step, state, opts, t0)
 
     return prob, run
 
@@ -124,9 +124,9 @@ def solve_batch(nlp: NLP, x0_batch, params_batch=None,
                 opts: Optional[Options] = None, preset: Optional[str] = None,
                 device="cuda", **overrides) -> BatchResult:
     """Solve a batch of instances on `device` (default "cuda"; raises when
-    there is no card): the ipopt interior-point method, or the fused
-    trust-region SQP family (filtersqp, funnelsqp, filterslp), by the
-    options' inequality handling."""
+    there is no card): the ipopt interior-point method, or the fused SQP
+    drivers (filtersqp, funnelsqp, filterslp, byrd), by the options'
+    inequality handling."""
     if opts is None:
         opts = _preset(preset or "ipopt", **overrides)
     elif overrides:
