@@ -38,13 +38,36 @@ overruns raises, and the script exits non-zero):
                   solved with ipopt on the card and on the CPU; then the
                   command line (uno_tpu_torch.__main__.main) with byrd on a
                   copy of a fixture in a temporary directory
- 15. summary      the {"kernels": [...]} line (each kernel's launches and
+ 15. structured_kernels  bench.py's structured factorize+solve pairs: the
+                  block-tridiagonal Cholesky at n=4,096, half-bandwidth 31
+                  (cyclic reduction), float32 and float64, and the
+                  supernodal LDL^T at N=8,192 (band 4, two dense rows),
+                  float32, each against the same code on the CPU, timed
+                  with its kernel launches and bound, beside the dense
+                  wrapper (ldlt_panel) at the same dims
+ 16. banded       lukvle1 at n=4,096 (banded backend) against the CPU and
+                  uno_tpu's result; at n=10,000 on the card alone, with its
+                  initial multipliers' ldlt_panel call (dim 19,998) timed;
+                  catena_n298's banded attempt and augmented retry
+ 17. lifted       the flagship batch (B=8,192) through the lifted Cholesky
+                  in float64, 64 instances again on the CPU; hs015 lifted
+ 18. sparse       steering at N=400 stages under the supernodal LDL^T
+                  against the CPU, uno_tpu's result and route report, and
+                  the card's augmented run; chwood_eq_n1000 under
+                  auto_permute (detected band, banded backend)
+ 19. summary      the {"kernels": [...]} line (each kernel's launches and
                   wrapper calls on its path, as cuda_ldlt counted them),
                   then the last line {"ok": true, "device": {...}}
 With --profile, the flagship batches of the main path and the filtersqp
-path (phase profile), then of the byrd path (phase profile_byrd), run once
-more under torch.profiler, which prints where their time goes (device busy
-share, kernels and host operators by time).
+path (phase profile), then of the byrd path (phase profile_byrd), and
+lukvle1 at n=4,096 (phase profile_structured) run once more under
+torch.profiler, which prints where their time goes (device busy share,
+kernels and host operators by time).
+
+The structured backends' factorizations are library calls and torch
+operations (cholesky_ex, triangular solves, matmuls), as uno_tpu's are
+outside Pallas; their paths still run the LDL^T kernels for the initial
+multipliers and catena's retry.
 
 Imports torch, numpy and uno_tpu_torch only.  Starts no child process
 other than nvidia-smi, nvcc and g++, and no thread.
@@ -66,11 +89,13 @@ from pathlib import Path
 import numpy as np
 
 # seconds per phase; the whole script stays well inside 20 minutes
-BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 180,
+BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 300,
            "main_path": 360, "n32": 240, "n512": 240, "single": 120,
            "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
-           "byrd_batch": 360, "byrd_single": 180, "nl": 300, "profile": 600,
-           "profile_byrd": 450}
+           "byrd_batch": 360, "byrd_single": 180, "nl": 300,
+           "structured_kernels": 300, "banded": 600, "lifted": 300,
+           "sparse": 600, "profile": 600, "profile_byrd": 450,
+           "profile_structured": 300}
 # the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
 # end two elements into a 16-byte vector
 KERNEL_DIMS = (12, 31, 32, 33, 34, 40, 64, 65, 66, 132, 260, 516)
@@ -80,6 +105,10 @@ KERNEL_BATCH = {12: 65536, 31: 4096, 32: 4096, 33: 4096, 34: 4096, 40: 4096,
                 64: 2048, 65: 2048, 66: 2048, 132: 512, 260: 264, 516: 132}
 # single instances in the Pallas single-instance kernel's range
 LARGE_DIMS = (640, 1280)
+# and the initial-multiplier matrix of lukvle1 at n=4,096 (dim n + m), float64
+STRUCT_INIT_DIM = 8190
+# above this dim the plain version is timed eagerly, not in a CUDA graph
+PLAIN_GRAPH_MAX_DIM = 4096
 # the dims of the QP multiplier fits' normal equations (m + 2n of each QP)
 # on the SQP paths: hs015's, hs071's and the flagship's optimality and
 # restoration QPs (byrd's relaxed QPs have the restoration QPs' widths:
@@ -188,6 +217,46 @@ NL_CLI_FIXTURE = "hs015like_n10.nl"
 NL_CLI_KKT_DIM = 20
 NL_F_TOL = 1e-8
 NL_SOL_ATOL = 1e-12
+# the structured KKT backends.  bench.py's structured shapes: the banded
+# matrix at n=4,096, half-bandwidth 31 (bench.py:372-380; blocks of 32, 128
+# of them, so cyclic reduction) and the sparse one at N=8,192, band 4 plus
+# two dense rows and columns (bench.py:433-444), from STRUCT_SEED.  Card
+# against the CPU running the same code: the solution within STRUCT_TOL of
+# max |x_cpu|, and |A x - b| / |b| within it
+STRUCT_BANDED_N, STRUCT_BANDED_BW = 4096, 31
+STRUCT_SPARSE_N, STRUCT_SPARSE_BW = 8192, 4
+STRUCT_SEED = 12
+STRUCT_TOL = {"float32": 1e-4, "float64": 1e-10}
+# uno_tpu's CPU results (JAX_PLATFORMS=cpu, kkt_formulation="auto"):
+# lukvle1 at n=4,096 optimal in 6 iterations (as at n=1,000 and n=100);
+# catena_n298's banded attempt ends in an algorithmic error, its augmented
+# retry optimal in 16
+LUKVLE1_N = 4096
+LUKVLE1_LARGE_N = 10000
+LUKVLE1_ITERATIONS = 6
+LUKVLE1_OPTIMUM = 6.2324586324379885
+CATENA_NAME = "catena_n298"
+CATENA_ITERATIONS = 16
+CATENA_OPTIMUM = -68.33955182986908
+# catena's augmented retry: KKT dim n + m = 298 + 150
+CATENA_KKT_DIM = 448
+# the flagship batch under the lifted backend in float64: uno_tpu on the CPU
+# solves all 8,192 of these instances (mean 9.30, max 16 iterations)
+LIFTED_BATCH = 8192
+LIFTED_RERUN = 64
+LIFTED_UNSOLVED = ()
+# steering at N=400 stages (n=2,006, m=1,600): uno_tpu's CPU run with
+# kkt_formulation="sparse" is optimal in 20 iterations, and its route report
+# reads KKT N=3,613 (1,607 rows with the 7 fixed variables), 231
+# supernodes, padded/dense flop ratio 0.047
+STEERING_N = 2006
+STEERING_REF = {"iterations": 20, "objective": 0.5545724135923553, "N": 3613,
+                "supernodes": 231, "flop_ratio": 0.047}
+# its initial multipliers' dense KKT (dim N), float64
+STEERING_KKT_DIM = 3613
+# auto_permute's detection finds a band here (uno_tpu: Jacobian windows of
+# width 4) and the banded backend solves it
+CHWOOD_NAME = "chwood_eq_n1000"
 
 
 class PhaseTimeout(Exception):
@@ -467,7 +536,13 @@ def _check_kernel(A, fk, plain, launched, batch, dim, dtype_name, expected):
         row["panel_ms"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts,
                                                            route="ldlt_panel"))
         row["ms_again"] = time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts))
-    row["plain_ms"] = time_ms(lambda: plain(A))
+    if dim <= PLAIN_GRAPH_MAX_DIM:
+        row["plain_ms"] = time_ms(lambda: plain(A))
+    else:
+        # the plain panels' many full-size temporaries would all be held by
+        # a CUDA graph's capture: timed eagerly, the host's issue included
+        row["plain_ms"] = eager_ms(lambda: plain(A), groups=1, target_ms=1.0)
+        row["plain_timed"] = "eager"
     row["eager_ms"] = eager_ms(lambda: cuda_ldlt.ldlt_factor_cuda(A))
     row["bound_ms"], row["bound_by"] = bound_ms(batch, dim, A.element_size(), dtype_name)
     print(json.dumps(row), flush=True)
@@ -527,7 +602,8 @@ def phase_kernels():
 
 def phase_kernels_large():
     return [check_kernel(1, dim, dtype_name)
-            for dtype_name in ("float32", "float64") for dim in LARGE_DIMS]
+            for dtype_name in ("float32", "float64") for dim in LARGE_DIMS] \
+        + [check_kernel(1, STRUCT_INIT_DIM, "float64")]
 
 
 # ---------------------------------------------------------------------------
@@ -998,6 +1074,574 @@ def profile_batch(batch, opts, top, host_ops=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6. the structured KKT backends (banded, lifted, sparse)
+# ---------------------------------------------------------------------------
+
+def _kernel_launches(call):
+    """The CUDA kernels one call of `call` launches, as torch.profiler sees
+    them on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")))
+
+
+def bench_band(n, bw, seed=STRUCT_SEED):
+    """bench.py:372-380's banded matrix (half-bandwidth bw, diagonally
+    dominant) in lower band storage, and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    band = np.zeros((bw + 1, n))
+    for d in range(bw + 1):
+        band[d, : n - d] = rng.standard_normal(n - d) * 0.1
+    band[0] = np.abs(band).sum(0) * 2 + 2.0
+    return band, rng.standard_normal(n)
+
+
+def bench_sparse(N, bw, seed=STRUCT_SEED):
+    """bench.py:433-444's sparse matrix: a band of half-width bw plus two
+    dense last rows and columns, diagonal 10 + U(0, 1); its pattern and a
+    right-hand side."""
+    rng = np.random.default_rng(seed)
+    pat = np.zeros((N, N), dtype=bool)
+    for o in range(bw + 1):
+        idx = np.arange(N - o)
+        pat[idx, idx + o] = True
+        pat[idx + o, idx] = True
+    pat[-2:, :] = True
+    pat[:, -2:] = True
+    A = np.where(pat, rng.standard_normal((N, N)), 0.0)
+    A = (A + A.T) / 2
+    A[np.diag_indices(N)] = 10.0 + rng.random(N)
+    return A, pat, rng.standard_normal(N)
+
+
+def band_dense(band):
+    n = band.shape[1]
+    A = np.zeros((n, n))
+    for d in range(band.shape[0]):
+        i = np.arange(n - d)
+        A[i + d, i] = A[i, i + d] = band[d, : n - d]
+    return A
+
+
+def _dense_wrapper_row(A_np, device, dtype_name="float32"):
+    """The port's dense LDL^T wrapper (ldlt_panel) on the same matrix: the
+    launches of one call alone, timed in a CUDA graph as check_kernel
+    times them, and the launches a call makes."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    dtype = getattr(torch, dtype_name)
+    A = torch.as_tensor(A_np[None], dtype=dtype, device=device).contiguous()
+    dim = A.shape[-1]
+    if torch.device(device).type != "cuda":
+        return {"dim": dim, "dtype": dtype_name, "ms": None, "kernel_launches": 0}
+    plan = cuda_ldlt.plan(1, dim, dtype)
+    L, d = torch.empty_like(A), torch.empty((1, dim), dtype=dtype, device=device)
+    counts = [torch.empty(1, dtype=torch.int64, device=device) for _ in range(3)]
+    with cuda_ldlt.uncounted():
+        return {"dim": dim, "dtype": dtype_name, "route": plan.route,
+                "kernel_launches": plan.launches,
+                "ms": time_ms(lambda: cuda_ldlt.launch(A, L, d, *counts))}
+
+
+def banded_flops(n, bw):
+    """A band Cholesky's flops, n (bw^2 + 3 bw), and its two band
+    triangular solves', 4 n bw (Golub and Van Loan, Matrix Computations,
+    4th ed., alg. 4.3.5 and 4.3.2)."""
+    return n * (bw * bw + 3 * bw) + 4 * n * bw
+
+
+def sparse_flops(plan, pattern):
+    """The supernodal factorization's work on this pattern: sum over the
+    columns of L of c_j (c_j + 3) (c_j below-diagonal entries of column j:
+    the scaling and the symmetric rank-1 update), and 4 nnz(L) for the two
+    triangular solves; nnz(L) from the plan's symbolic Cholesky."""
+    from uno_tpu_torch.linalg.sparse_ldlt import _symbolic_cholesky
+    cols = _symbolic_cholesky(pattern[np.ix_(plan.perm, plan.perm)])
+    c = np.array([len(col) for col in cols], dtype=np.float64)
+    return float(np.sum(c * (c + 3.0)) + 4.0 * (c.sum() + len(cols)))
+
+
+def structured_bound(bytes_moved, flops, dtype_name):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _structured_row(name, call, call_cpu, x_ref_check, device, dtype_name,
+                    bytes_moved, flops, tol):
+    """One factorize+solve pair on `device` against the same code on the
+    CPU: the solution's gap relative to max |x_cpu| within `tol`, and the
+    residual check `x_ref_check(x)`; its time (CUDA events around
+    back-to-back eager calls, the host's issue included: the host loops
+    are part of these functions), its kernel launches and its bound."""
+    import torch
+    x = call()
+    x_cpu = call_cpu()
+    row = {"name": name, "dtype": dtype_name,
+           "gap_to_cpu": float((x.cpu() - x_cpu).abs().amax()
+                               / x_cpu.abs().amax().clamp(min=1e-300)),
+           "residual": x_ref_check(x.cpu().double().numpy()[0])}
+    row["bound_ms"], row["bound_by"] = structured_bound(bytes_moved, flops, dtype_name)
+    if torch.device(device).type == "cuda":
+        row["ms"] = eager_ms(call)
+        row["kernel_launches"] = _kernel_launches(call)
+    print(json.dumps(row), flush=True)
+    if not (row["gap_to_cpu"] <= tol and row["residual"] <= tol):
+        raise AssertionError(f"{name}: {row}")
+    return row
+
+
+def phase_structured_kernels(device="cuda", band_n=STRUCT_BANDED_N,
+                             band_bw=STRUCT_BANDED_BW, sparse_n=STRUCT_SPARSE_N,
+                             sparse_bw=STRUCT_SPARSE_BW):
+    """The structured factorize+solve pairs at bench.py's shapes: the
+    block-tridiagonal Cholesky (cyclic reduction at this block count) of
+    the banded matrix in float32 and float64, and the supernodal LDL^T of
+    the sparse one in float32, each against the same code on the CPU and
+    timed; the port's dense wrapper (ldlt_panel) at the same dims in
+    float32 beside them."""
+    import torch
+    from uno_tpu_torch.linalg import banded
+    from uno_tpu_torch.linalg.banded_kkt import CR_MIN_BLOCKS
+    from uno_tpu_torch.linalg.sparse_ldlt import build_plan, make_sparse_ldlt
+
+    out = {"banded": [], "sparse": []}
+    band_np, rhs_np = bench_band(band_n, band_bw)
+    nb = banded.pick_block_size(band_bw)
+    blocks = -(-band_n // nb)
+    cr = blocks >= CR_MIN_BLOCKS
+    A_band = band_dense(band_np)
+
+    def banded_pair(dev, dtype):
+        bt = torch.as_tensor(band_np[None], dtype=dtype, device=dev)
+        rt = torch.as_tensor(rhs_np[None], dtype=dtype, device=dev)
+
+        def call():
+            D, E = banded.band_to_blocks(bt, nb)
+            if cr:
+                return banded.btd_solve_cr(banded.btd_cholesky_cr(D, E), rt)
+            return banded.btd_solve(banded.btd_cholesky(D, E), rt)
+        return call
+
+    def band_residual(x):
+        return float(np.abs(A_band @ x - rhs_np).max() / np.abs(rhs_np).max())
+
+    for dtype_name in ("float32", "float64"):
+        dtype = getattr(torch, dtype_name)
+        size = np.dtype(dtype_name).itemsize
+        row = _structured_row(
+            f"banded n={band_n} b={band_bw}", banded_pair(device, dtype),
+            banded_pair("cpu", dtype), band_residual, device, dtype_name,
+            ((band_bw + 1) * band_n + 2 * band_n) * size,
+            banded_flops(band_n, band_bw), STRUCT_TOL[dtype_name])
+        row.update(n=band_n, bw=band_bw, block=nb, blocks=blocks,
+                   route="cyclic reduction" if cr else "sweep")
+        out["banded"].append(row)
+    out["banded_dense"] = _dense_wrapper_row(A_band, device)
+
+    A_sp, pat, rhs_sp = bench_sparse(sparse_n, sparse_bw)
+    t0 = time.monotonic()
+    plan = build_plan(pat, np.zeros(sparse_n, dtype=bool))
+    plan_s = time.monotonic() - t0
+    fac_fn, solve_fn = make_sparse_ldlt(plan)
+
+    def sparse_pair(dev):
+        At = torch.as_tensor(A_sp[None], dtype=torch.float32, device=dev)
+        rt = torch.as_tensor(rhs_sp[None], dtype=torch.float32, device=dev)
+        return lambda: solve_fn(fac_fn(At), rt)
+
+    def sparse_residual(x):
+        return float(np.abs(A_sp @ x - rhs_sp).max() / np.abs(rhs_sp).max())
+
+    row = _structured_row(
+        f"sparse N={sparse_n}", sparse_pair(device), sparse_pair("cpu"),
+        sparse_residual, device, "float32",
+        (int(np.count_nonzero(np.tril(pat))) + 2 * sparse_n) * 4,
+        sparse_flops(plan, pat), STRUCT_TOL["float32"])
+    row.update(N=sparse_n, supernodes=plan.num_supernodes, w_max=plan.w_max,
+               r_max=plan.r_max, u_max=plan.u_max, nnz_factor=plan.nnz_factor,
+               padded_over_dense_flops=plan.padded_flops() / plan.dense_flops(),
+               plan_s=plan_s)
+    out["sparse"].append(row)
+    out["sparse_dense"] = _dense_wrapper_row(A_sp, device)
+    print(json.dumps({k: out[k] for k in ("banded_dense", "sparse_dense")}), flush=True)
+    # two runs give the same bits: the banded KKT's window sums (repeated
+    # window starts included) and the sparse factorization use no atomics
+    kkt_call = banded_kkt_pair(band_n, device)
+    same = {"banded_kkt": bool(torch.equal(kkt_call(), kkt_call())),
+            "sparse": bool(torch.equal(sparse_pair(device)(), sparse_pair(device)()))}
+    out["bit_identical_reruns"] = same
+    print(json.dumps({"bit_identical_reruns": same}), flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"a rerun on {device} changed the bits: {same}")
+    return out
+
+
+def banded_kkt_pair(n0, device, seed=STRUCT_SEED):
+    """A factorize+solve of the banded KKT backend on a seeded lukvle1-like
+    system (n0 columns, n0 - 2 rows in windows of 3, every third row with a
+    slack, the first two windows starting together), as a call."""
+    import torch
+    from uno_tpu_torch.linalg import banded_kkt
+    rng = np.random.default_rng(seed)
+    m, w, bh = n0 - 2, 3, 2
+    starts = np.arange(m, dtype=np.int64)
+    starts[1] = 0
+    soc = np.full(m, -1, dtype=np.int64)
+    ns = len(range(0, m, 3))
+    soc[0::3] = n0 + np.arange(ns)
+    band, _ = bench_band(n0, bh, seed)
+    leaves = (band, 1.0 + rng.random(n0), 1.0 + rng.random(ns),
+              rng.standard_normal((m, w)), 1e-3 + rng.random(m))
+    kkt = banded_kkt.BandedKKT(*(torch.as_tensor(a[None], device=device)
+                                 for a in leaves))
+    rhs = torch.as_tensor(rng.standard_normal((1, n0 + ns + m)), device=device)
+    fac, solve, _ = banded_kkt.make_banded_kkt_backend(n0 + ns, n0, m, starts,
+                                                       soc, bh, w)
+    return lambda: solve(fac(kkt), rhs)
+
+
+def _peak_gib(device):
+    import torch
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _solve_counted(nlp, device, **kw):
+    """solve() on `device` with the kernel and backend counts zeroed just
+    before it; returns (result, wall s, counts)."""
+    import torch
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import banded_kkt, condensed, cuda_ldlt, sparse_ldlt
+    for mod in (banded_kkt, condensed, sparse_ldlt, cuda_ldlt):
+        mod.reset_counts()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve(nlp, preset="ipopt", device=device, **kw)
+    wall = time.monotonic() - t0
+    counts = {"launches_by_route": dict(cuda_ldlt.launches),
+              "calls_by_route": dict(cuda_ldlt.calls),
+              "banded": dict(banded_kkt.counts), "lifted": dict(condensed.counts),
+              "sparse": dict(sparse_ldlt.counts), "peak_gib": _peak_gib(device)}
+    return res, wall, counts
+
+
+def _against_cpu(tag, res, ref, f_rtol, x_atol=None):
+    """Equal status and iterations, objective within f_rtol of max(|f|, 1),
+    x within x_atol (when given); the gaps."""
+    f_gap = abs(res.objective - ref.objective) / max(abs(ref.objective), 1.0)
+    out = {"cpu_status": ref.status, "cpu_iterations": ref.iterations,
+           "cpu_objective": ref.objective, "objective_rel_gap": f_gap}
+    if x_atol is not None:
+        out["x_max_abs_diff"] = float(np.max(np.abs(res.x - ref.x)))
+    if (res.status, res.iterations) != (ref.status, ref.iterations) \
+            or not f_gap <= f_rtol \
+            or (x_atol is not None and not out["x_max_abs_diff"] <= x_atol):
+        raise AssertionError(f"{tag}: the card and the CPU differ: {out}")
+    return out
+
+
+def _held_to(tag, res, iterations, objective, f_rtol):
+    """uno_tpu's CPU result: optimal, its iterations, objective within
+    f_rtol relative."""
+    gap = abs(res.objective - objective) / abs(objective)
+    if res.status != "optimal" or res.iterations != iterations or not gap <= f_rtol:
+        raise AssertionError(f"{tag}: {res.status}, {res.iterations} iterations, "
+                             f"objective {res.objective!r}; uno_tpu: optimal, "
+                             f"{iterations}, {objective!r}")
+    return gap
+
+
+def phase_banded(device="cuda", n=LUKVLE1_N, large_n=LUKVLE1_LARGE_N,
+                 catena=CATENA_NAME):
+    """lukvle1 at n under the ipopt preset's auto route, which takes the
+    banded backend, against the port's CPU run and uno_tpu's CPU result;
+    lukvle1 at large_n on the card alone (optimal; iterations, objective,
+    wall and peak memory printed; with its initial multipliers' dense
+    matrix of dim 2 large_n - 2 on ldlt_panel, timed beside its plain
+    version); catena under auto, whose banded attempt ends in an
+    algorithmic error and is retried augmented, held to uno_tpu's result."""
+    import torch
+    from uno_tpu_torch.model.library import get_problem
+    from uno_tpu_torch.model.library_cutest import cutest_problem
+
+    out = {}
+    nlp = cutest_problem("lukvle1", n)
+    res, wall, counts = _solve_counted(nlp, device)
+    row = {"problem": nlp.name, "n": n, "m": nlp.m, "status": res.status,
+           "iterations": res.iterations, "objective": res.objective,
+           "uno_tpu_objective": LUKVLE1_OPTIMUM, "wall_s": wall,
+           "init_kkt_dim": n + nlp.m,
+           "dense_jacobian_mib": 8 * n * nlp.m / 2 ** 20,
+           "init_kkt_mib": 8 * (n + nlp.m) ** 2 / 2 ** 20, **counts}
+    if counts["banded"]["factorizations"] <= 0:
+        raise AssertionError(f"{nlp.name}: the banded backend did not run")
+    ref = uno_tpu_torch_solve_cpu(nlp)
+    row.update(_against_cpu(nlp.name, res, ref, 1e-10, 1e-8))
+    row["uno_tpu_objective_rel_gap"] = _held_to(
+        nlp.name, res, LUKVLE1_ITERATIONS, LUKVLE1_OPTIMUM, 1e-9)
+    print(json.dumps(row), flush=True)
+    out["lukvle1"] = row
+    if device != "cpu" and counts["launches_by_route"]["ldlt_panel"] <= 0:
+        raise AssertionError("lukvle1's initial multipliers launched ldlt_panel 0 times")
+
+    if large_n:
+        big = cutest_problem("lukvle1", large_n)
+        res, wall, counts = _solve_counted(big, device)
+        row = {"problem": big.name, "n": large_n, "m": big.m, "status": res.status,
+               "iterations": res.iterations, "objective": res.objective,
+               "uno_tpu_objective_n4096": LUKVLE1_OPTIMUM, "wall_s": wall,
+               "init_kkt_dim": large_n + big.m,
+               "dense_jacobian_mib": 8 * large_n * big.m / 2 ** 20,
+               "init_kkt_mib": 8 * (large_n + big.m) ** 2 / 2 ** 20, **counts}
+        if res.status != "optimal" or counts["banded"]["factorizations"] <= 0:
+            raise AssertionError(f"{big.name}: {row}")
+        row["init_multipliers_ldlt_panel"] = init_multiplier_kernel_row(big, device)
+        print(json.dumps(row), flush=True)
+        out["lukvle1_large"] = row
+        torch.cuda.empty_cache()
+
+    cat = get_problem(catena)
+    res, wall, counts = _solve_counted(cat, device)
+    row = {"problem": catena, "status": res.status, "iterations": res.iterations,
+           "objective": res.objective, "retried_after": res.retried_after,
+           "wall_s": wall, **counts}
+    print(json.dumps(row), flush=True)
+    if res.retried_after is None or res.retried_after["status"] != "algorithmic_error" \
+            or counts["banded"]["factorizations"] <= 0:
+        raise AssertionError(f"{catena}: the banded attempt and its retry: {row}")
+    row["uno_tpu_objective_rel_gap"] = _held_to(
+        catena, res, CATENA_ITERATIONS, CATENA_OPTIMUM, 1e-8)
+    if device != "cpu" and counts["launches_by_route"]["ldlt_panel"] <= 0:
+        raise AssertionError(f"{catena}'s retry launched ldlt_panel 0 times")
+    out["catena"] = row
+    return out
+
+
+def uno_tpu_torch_solve_cpu(nlp, **kw):
+    import uno_tpu_torch
+    return uno_tpu_torch.solve(nlp, preset="ipopt", device="cpu", **kw)
+
+
+def init_multiplier_kernel_row(nlp, device):
+    """The dense [I J^T; J 0] of the initial least-square multipliers at the
+    interior-pushed x0 (solvers/ipm.make_initial_state) on ldlt_panel: the
+    launches of one call in a CUDA graph, against its plain version (eager,
+    one call), with the launches a call makes and the bound."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.linalg.ldlt import plain_factorizer
+    from uno_tpu_torch.model.transforms import reformulate_for_interior_point
+    from uno_tpu_torch.options import preset
+    opts = preset("ipopt")
+    prob = reformulate_for_interior_point(nlp, opts.tolerance)
+    x = torch.as_tensor(prob.x0, device=device)[None]
+    J = prob.constraint_jacobian(x)
+    n, m = prob.n, prob.m
+    K = torch.zeros((1, n + m, n + m), dtype=torch.float64, device=device)
+    K[0, :n, :n] = torch.eye(n, dtype=torch.float64, device=device)
+    K[0, n:, :n] = J[0]
+    K[0, :n, n:] = J[0].T
+    del J
+    dim = n + m
+    plan = cuda_ldlt.plan(1, dim, K.dtype)
+    L, d = torch.empty_like(K), torch.empty((1, dim), dtype=K.dtype, device=device)
+    counts = [torch.empty(1, dtype=torch.int64, device=device) for _ in range(3)]
+    plain = plain_factorizer(dim)
+    with cuda_ldlt.uncounted():
+        cuda_ldlt.launch(K, L, d, *counts)
+        fp = plain(K)
+        gap = max(float((L - fp.L).abs().amax()), float((d - fp.d).abs().amax()))
+        del fp
+        row = {"dim": dim, "dtype": "float64", "route": plan.route,
+               "kernel_launches": plan.launches, "max_abs_err": gap,
+               "ms": time_ms(lambda: cuda_ldlt.launch(K, L, d, *counts)),
+               "plain_ms": eager_ms(lambda: plain(K), groups=1, target_ms=1.0)}
+    row["bound_ms"], row["bound_by"] = bound_ms(1, dim, 8, "float64")
+    if not gap <= FACTOR_RTOL["float64"] * max(1.0, float(d.abs().amax())):
+        raise AssertionError(f"initial multipliers, dim {dim}: {row}")
+    return row
+
+
+def lifted_options():
+    """The main path's options with the lifted Cholesky in float64 (tau
+    stays at 1e-8; uno_tpu's options ask for about 1e-5 with float32
+    factors)."""
+    return main_path_options().replace(kkt_formulation="lifted", kkt_dtype="float64")
+
+
+def phase_lifted(device="cuda", batch=LIFTED_BATCH, rerun=LIFTED_RERUN,
+                 unsolved=LIFTED_UNSOLVED):
+    """The flagship batch through the lifted backend, held to uno_tpu's
+    solved set (its CPU run of the same instances), with `rerun` instances
+    again on the CPU; then hs015 under lifted against the CPU."""
+    import torch
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import condensed, cuda_ldlt
+    from uno_tpu_torch.model.library import flagship, hs015
+    from uno_tpu_torch.solvers.ipm import ALMOST_OPTIMAL, OPTIMAL
+
+    nlp, x0, params = flagship(batch)
+    opts = lifted_options()
+    condensed.reset_counts()
+    cuda_ldlt.reset_counts()
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    failed = np.nonzero((res.status != OPTIMAL) & (res.status != ALMOST_OPTIMAL))[0]
+    out = {"batch": batch, "solved": res.num_solved, "unsolved": failed.tolist()[:32],
+           "mean_iterations": float(np.mean(res.iterations)),
+           "max_iterations": int(np.max(res.iterations)), "wall_s": wall,
+           "solves_per_s": batch / wall, "lifted": dict(condensed.counts),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls)}
+    if condensed.counts["factorizations"] <= 0:
+        raise AssertionError("the lifted backend did not run")
+    if not np.all(np.isfinite(res.x)) or tuple(failed.tolist()) != tuple(
+            i for i in unsolved if i < batch):
+        raise AssertionError(f"lifted batch: {out}")
+    k = min(rerun, batch)
+    ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts, device="cpu")
+    diff = np.abs(ref.iterations - res.iterations[:k])
+    out.update(cpu_rerun=k, status_equal=int(np.sum(ref.status == res.status[:k])),
+               iterations_max_diff=int(diff.max()),
+               x_max_abs_diff=float(np.max(np.abs(ref.x - res.x[:k]))))
+    print(json.dumps(out), flush=True)
+    if not np.array_equal(ref.status, res.status[:k]) or diff.max() > 0 \
+            or not out["x_max_abs_diff"] <= X_ATOL:
+        raise AssertionError(f"lifted batch against the CPU: {out}")
+
+    r, wall, counts = _solve_counted(hs015(), device, kkt_formulation="lifted")
+    row = {"problem": "hs015", "status": r.status, "iterations": r.iterations,
+           "objective": r.objective, "wall_s": wall, "lifted": counts["lifted"]}
+    row.update(_against_cpu("hs015 lifted", r, uno_tpu_torch_solve_cpu(
+        hs015(), kkt_formulation="lifted"), 1e-10))
+    print(json.dumps(row), flush=True)
+    if not abs(r.objective - HS015_OPTIMUM) < 1e-2 or counts["lifted"]["factorizations"] <= 0:
+        raise AssertionError(f"hs015 lifted: {row}")
+    out["hs015"] = row
+    return out
+
+
+def phase_sparse(device="cuda", n=STEERING_N, ref=STEERING_REF,
+                 chwood=CHWOOD_NAME):
+    """steering under kkt_formulation="sparse" against the port's CPU run,
+    uno_tpu's CPU result and route report `ref`, and the card's augmented
+    run; the auto_permute route report of the same instance; chwood_eq
+    under auto_permute, whose detection finds a band for the banded
+    backend, against the CPU."""
+    from uno_tpu_torch.linalg import sparse_kkt
+    from uno_tpu_torch.model import transforms
+    from uno_tpu_torch.model.library import get_problem
+    from uno_tpu_torch.model.library_cutest import cutest_problem
+    from uno_tpu_torch.options import preset
+    from uno_tpu_torch.solvers.ipm import build_ipm
+
+    out = {}
+    nlp = cutest_problem("steering", n)
+    res, wall, counts = _solve_counted(nlp, device, kkt_formulation="sparse")
+    rep = sparse_kkt.last_detection_report
+    row = {"problem": nlp.name, "status": res.status, "iterations": res.iterations,
+           "objective": res.objective, "wall_s": wall, "report": vars(rep),
+           "flop_ratio": rep.padded_flops / rep.dense_flops, **counts}
+    print(json.dumps(row), flush=True)
+    if counts["sparse"]["factorizations"] <= 0 or rep.route != "sparse" \
+            or (rep.N, rep.num_supernodes) != (ref["N"], ref["supernodes"]) \
+            or round(row["flop_ratio"], 3) != ref["flop_ratio"]:
+        raise AssertionError(f"{nlp.name}: the sparse route differs from "
+                             f"uno_tpu's {ref}: {row['report']}")
+    row.update(_against_cpu(nlp.name, res, uno_tpu_torch_solve_cpu(
+        nlp, kkt_formulation="sparse"), 1e-8))
+    row["uno_tpu_objective_rel_gap"] = _held_to(
+        nlp.name, res, ref["iterations"], ref["objective"], 1e-9)
+    aug, aug_wall, aug_counts = _solve_counted(nlp, device, kkt_formulation="augmented")
+    row["augmented"] = {"status": aug.status, "iterations": aug.iterations,
+                        "objective": aug.objective, "wall_s": aug_wall,
+                        "launches_by_route": aug_counts["launches_by_route"]}
+    if aug.status != res.status or abs(aug.iterations - res.iterations) > 1:
+        raise AssertionError(f"{nlp.name}: sparse and augmented differ: {row}")
+    # the auto route of the same instance (detection skips n > 1536)
+    opts = preset("ipopt", auto_permute=True)
+    if transforms.detect_structure(nlp)[1] is not None:
+        raise AssertionError(f"{nlp.name}: detect_structure found a band")
+    build_ipm(nlp, opts)
+    row["auto_permute_report"] = vars(sparse_kkt.last_detection_report)
+    print(json.dumps({k: row[k] for k in ("augmented", "auto_permute_report")}),
+          flush=True)
+    out["steering"] = row
+
+    cw = get_problem(chwood)
+    permuted, perm = transforms.detect_structure(cw)
+    if perm is None:
+        raise AssertionError(f"{chwood}: detect_structure found no band")
+    res, wall, counts = _solve_counted(cw, device, auto_permute=True)
+    row = {"problem": chwood, "hess_bandwidth": permuted.structure.hess_bandwidth,
+           "jac_width": permuted.structure.jac_width, "status": res.status,
+           "iterations": res.iterations, "objective": res.objective,
+           "wall_s": wall, **counts}
+    if counts["banded"]["factorizations"] <= 0:
+        raise AssertionError(f"{chwood}: the banded backend did not run")
+    row.update(_against_cpu(chwood, res, uno_tpu_torch_solve_cpu(
+        cw, auto_permute=True), 1e-10, 1e-8))
+    print(json.dumps(row), flush=True)
+    if res.status != "optimal":
+        raise AssertionError(f"{chwood}: {row}")
+    out["chwood"] = row
+    return out
+
+
+def phase_profile_structured(top=12, n=LUKVLE1_N):
+    """lukvle1 at n once more (warm: the banded phase solved it) under
+    torch.profiler: the device's busy share, the top device kernels and
+    host operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import uno_tpu_torch
+    from uno_tpu_torch.model.library_cutest import cutest_problem
+
+    nlp = cutest_problem("lukvle1", n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA, ProfilerActivity.CPU]) as prof:
+        t0 = time.monotonic()
+        res = uno_tpu_torch.solve(nlp, preset="ipopt", device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    device_rows, host_rows = [], []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            device_rows.append((getattr(e, "self_device_time_total", 0.0) / 1e3,
+                                e.count, e.key))
+        else:
+            host_rows.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    device_rows.sort(reverse=True)
+    host_rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in device_rows)
+    out = {"problem": nlp.name, "iterations": res.iterations,
+           "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernel_launches": int(sum(r[1] for r in device_rows)),
+           "device_top": [{"ms": r[0], "count": r[1], "name": r[2][:90]}
+                          for r in device_rows[:top]],
+           "host_top": [{"self_ms": r[0], "count": r[1], "name": r[2][:60]}
+                        for r in host_rows[:top]]}
+    print(json.dumps(out, indent=1), flush=True)
+    if busy_ms <= 0.0:
+        raise AssertionError("the profiler saw no device time")
+    return out
+
+
 BATCHED = "uno_tpu/linalg/pallas_ldlt.py:206"   # ldlt_factor_pallas_batched's pallas_call
 SINGLE = "uno_tpu/linalg/pallas_ldlt.py:247"    # ldlt_factor_pallas's pallas_call
 
@@ -1045,10 +1689,15 @@ def main(argv=None):
     byrd_batch = run_phase("byrd_batch", phase_byrd_batch)
     byrd_single = run_phase("byrd_single", phase_byrd_single)
     nl = run_phase("nl", phase_nl)
+    structured_kernels = run_phase("structured_kernels", phase_structured_kernels)
+    banded_path = run_phase("banded", phase_banded)
+    lifted = run_phase("lifted", phase_lifted)
+    sparse = run_phase("sparse", phase_sparse)
     profiled = None
     if args.profile:
         profiled = run_phase("profile", phase_profile)
         profiled.update(run_phase("profile_byrd", phase_profile_byrd))
+        profiled["lukvle1"] = run_phase("profile_structured", phase_profile_structured)
 
     # the kernels at the paths' own shapes: the flagship's KKT (dim 12,
     # float32) at the full batch, hs015's (dim 6, float64) alone, and from
@@ -1077,6 +1726,12 @@ def main(argv=None):
                for route, dim in NL_KKT_DIMS.items()}
     nl_cli_row = check_kernel(1, NL_CLI_KKT_DIM, "float64", seed=10)
     chol_ms = cholesky_ms(SQP_BATCH, 8)
+    # the structured paths' LDL^T calls: catena's retry (dim 448, float64),
+    # the lifted batch's initial multipliers (dim 12, float64) and
+    # steering's (dim 3613, float64); lukvle1's (dim 8190) is in `large`
+    catena_row = check_kernel(1, CATENA_KKT_DIM, "float64", seed=13)
+    lifted_row = check_kernel(LIFTED_BATCH, MAIN_KKT_DIM, "float64", seed=14)
+    steering_row = check_kernel(1, STEERING_KKT_DIM, "float64", seed=15)
 
     def row_of(rows, batch, dim, dtype_name):
         return next(r for r in rows if (r["batch"], r["dim"], r.get("dtype"))
@@ -1115,6 +1770,15 @@ def main(argv=None):
                      nl_rows["ldlt_column"]),
         kernel_entry("ldlt_warp (nl path, byrd command line)", SINGLE, nl,
                      "ldlt_warp", nl_cli_row),
+        kernel_entry("ldlt_panel (banded path, lukvle1 n=4096 initial multipliers)",
+                     SINGLE, banded_path["lukvle1"], "ldlt_panel",
+                     row_of(large, 1, STRUCT_INIT_DIM, "float64")),
+        kernel_entry("ldlt_panel (banded path, catena_n298 augmented retry)",
+                     SINGLE, banded_path["catena"], "ldlt_panel", catena_row),
+        kernel_entry("ldlt_warp (lifted path, flagship initial multipliers)",
+                     BATCHED, lifted, "ldlt_warp", lifted_row),
+        kernel_entry("ldlt_panel (sparse path, steering initial multipliers)",
+                     SINGLE, sparse["steering"], "ldlt_panel", steering_row),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
@@ -1126,10 +1790,13 @@ def main(argv=None):
                        "single_large": single_large, "sqp_batch": sqp_batch,
                        "sqp_single": sqp_single, "byrd_batch": byrd_batch,
                        "byrd_single": byrd_single, "nl": nl,
+                       "structured_kernels": structured_kernels,
+                       "banded": banded_path, "lifted": lifted, "sparse": sparse,
                        "path_kernels": [batched, single_row, n32_row, sqp_row,
                                         fit_row, byrd_row, byrd_fit_row,
                                         byrd_single_row, *nl_rows.values(),
-                                        nl_cli_row],
+                                        nl_cli_row, catena_row, lifted_row,
+                                        steering_row],
                        "profile": profiled, "kernels": kernels,
                        "total_s": total}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -205,6 +205,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import uno_tpu_torch.solvers.batch, uno_tpu_torch.api\n"
         "import uno_tpu_torch.io.nl, uno_tpu_torch.model.library_nl\n"
         "import uno_tpu_torch.__main__\n"
+        "import uno_tpu_torch.linalg.banded, uno_tpu_torch.linalg.banded_kkt\n"
+        "import uno_tpu_torch.linalg.condensed, uno_tpu_torch.linalg.sparse_ldlt\n"
+        "import uno_tpu_torch.linalg.sparse_kkt, uno_tpu_torch.model.library_cutest\n"
         "bad = [m for m in sys.modules if m == 'uno_tpu' or m.startswith('uno_tpu.')\n"
         "       or (m.startswith('jax.') or m == 'jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -1,16 +1,23 @@
 """Top-level solve API (the reference's Uno::solve, Uno.cpp:44-98);
 counterpart of uno_tpu/api.py.  Routes the ipopt preset to the
 interior-point solver, filtersqp, funnelsqp and filterslp to the fused
-trust-region SQP driver, and byrd to the fused line-search SQP driver."""
+trust-region SQP driver, and byrd to the fused line-search SQP driver.
+With auto_permute, a model without declared structure is probed and, when
+RCM finds a band, solved permuted on the banded backend, its x, zl and zu
+mapped back; under kkt_formulation="auto" an IPM solve of a structured
+model that ends in an algorithmic error is retried with the augmented
+formulation, as uno_tpu does, and the Result records it (retried_after)."""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from uno_tpu_torch.model import transforms
 from uno_tpu_torch.model.nlp import NLP
 from uno_tpu_torch.options import Options, preset as _preset
 from uno_tpu_torch.solvers.batch import resolve_device
@@ -113,7 +120,7 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
             raise NotImplementedError(
                 "The interior-point subproblem does not support a trust "
                 "region; use globalization_mechanism='LS'")
-        run = solve_ipm
+        run = _solve_ipm_with_retry
     else:
         byrd = is_byrd_family(options)
         fused = options.sqp_driver == "fused" or (
@@ -128,4 +135,38 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
     early = _preflight(nlp)
     if early is not None:
         return early
+    if options.auto_permute and nlp.structure is None:
+        permuted, perm = transforms.detect_structure(nlp)
+        if perm is not None:
+            res = solve(permuted, options=options.replace(auto_permute=False),
+                        callbacks=callbacks, history=history, device=device)
+            pos = np.empty(nlp.n, dtype=np.int64)
+            pos[perm] = np.arange(nlp.n)
+            return dataclasses.replace(res, x=np.asarray(res.x)[pos],
+                                       zl=np.asarray(res.zl)[pos],
+                                       zu=np.asarray(res.zu)[pos])
     return run(nlp, options, device, callbacks=callbacks, history=history)
+
+
+def _solve_ipm_with_retry(nlp: NLP, options: Options, device, callbacks=None,
+                          history=False) -> Result:
+    """solve_ipm, and under kkt_formulation="auto" on a structured model
+    that ends in algorithmic_error, solve_ipm again with the augmented
+    formulation (uno_tpu/api.py:148-169): the condensed formulations square
+    the KKT conditioning, and under heavy inertia correction (the catena
+    family at its flat start) the augmented LDL^T is the robust one.  The
+    retry's result is returned, with retried_after set, unless it ends in
+    algorithmic_error too."""
+    res = solve_ipm(nlp, options, device, callbacks=callbacks, history=history)
+    if (res.status == "algorithmic_error" and options.kkt_formulation == "auto"
+            and nlp.structure is not None):
+        from uno_tpu_torch.utils import logger
+        logger.warning(f"{nlp.name}: the structured KKT solve ended in "
+                       f"algorithmic_error after {res.iterations} iterations; "
+                       "retrying with kkt_formulation='augmented'")
+        res2 = solve_ipm(nlp, options.replace(kkt_formulation="augmented"),
+                         device, callbacks=callbacks, history=history)
+        if res2.success or res2.status != "algorithmic_error":
+            return dataclasses.replace(res2, retried_after={
+                "status": res.status, "iterations": res.iterations})
+    return res

@@ -8,6 +8,13 @@ count is a host loop over the batch, capped at
 `max_regularization_attempts`; each trip factors only the instances that
 are still correcting, and the others keep their result, which is what
 uno_tpu's vmapped while_loop computes.
+
+`assemble` may return a dense (B, dim, dim) batch or a structured object
+(a NamedTuple of tensors, e.g. linalg/banded_kkt.BandedKKT), and a
+`factorizer` may replace the dense LDL^T (the lifted, banded and sparse
+backends).  Every tensor of such an object, and of its factor, carries the
+batch as its leading axis, so taking and putting back the instances that
+are still correcting is a map over its leaves (`tree_map`).
 """
 
 from __future__ import annotations
@@ -18,6 +25,25 @@ import torch
 
 from uno_tpu_torch.linalg import cuda_ldlt
 from uno_tpu_torch.linalg.ldlt import LDLT
+
+
+def tree_map(fn, *trees):
+    """fn over the tensors of equally shaped trees of NamedTuples and
+    tuples; other leaves (None) pass through from the first tree."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    if isinstance(first, tuple):
+        out = [tree_map(fn, *parts) for parts in zip(*trees)]
+        return type(first)(*out) if hasattr(first, "_fields") else tuple(out)
+    return first
+
+
+def _cast(assembled, dtype):
+    """Every floating tensor of the assembled KKT to the factor dtype,
+    contiguous (the kernels' wrapper takes contiguous matrices)."""
+    return tree_map(lambda t: (t.to(dtype) if t.is_floating_point() else t)
+                    .contiguous(), assembled)
 
 
 def pick_factorizer(dim: int, block: int = 32):
@@ -33,7 +59,7 @@ def pick_factorizer(dim: int, block: int = 32):
 
 
 class RegularizedFactorization(NamedTuple):
-    fac: LDLT
+    fac: object                  # LDLT, or the factorizer's factor object
     delta: torch.Tensor          # (B,) primal regularization actually used
     eps: torch.Tensor            # (B,) dual regularization actually used
     prev_delta: torch.Tensor     # (B,) warm-start value for the next KKT solve
@@ -42,8 +68,9 @@ class RegularizedFactorization(NamedTuple):
     attempts: torch.Tensor       # (B,) int: number of factorizations performed
 
 
-def _put(fac: LDLT, idx, sub: LDLT) -> LDLT:
-    return LDLT(*(full.index_copy(0, idx, part) for full, part in zip(fac, sub)))
+def _put(fac, idx, sub):
+    """`fac` with the instances `idx` replaced by `sub`'s."""
+    return tree_map(lambda full, part: full.index_copy(0, idx, part), fac, sub)
 
 
 def regularize_and_factor(
@@ -54,11 +81,15 @@ def regularize_and_factor(
     prev_delta,                  # (B,)
     opts,
     block: int = 32,
+    factorizer=None,
 ) -> RegularizedFactorization:
-    """assemble(delta, eps) with (B,) delta and eps must build the (B, dim,
-    dim) augmented matrices with the regularization applied (+delta on the
-    primal diagonal, -eps on the dual)."""
-    factorize = pick_factorizer(expected_pos + expected_neg, block)
+    """assemble(delta, eps) with (B,) delta and eps must build the batch of
+    augmented KKTs with the regularization applied (+delta on the primal
+    diagonal, -eps on the dual): dense (B, dim, dim) matrices, or a
+    structured object for `factorizer`, which returns an object with
+    (B,) num_pos/num_neg/num_zero fields."""
+    factorize = factorizer if factorizer is not None else pick_factorizer(
+        expected_pos + expected_neg, block)
     factor_dtype = getattr(torch, opts.kkt_dtype)
 
     def inertia_ok(fac):
@@ -66,7 +97,7 @@ def regularize_and_factor(
             & (fac.num_zero == 0)
 
     zero = torch.zeros_like(prev_delta)
-    fac = factorize(assemble(zero, zero).to(factor_dtype).contiguous())
+    fac = factorize(_cast(assemble(zero, zero), factor_dtype))
     ok0 = inertia_ok(fac)
     singular0 = fac.num_zero > 0
 
@@ -86,8 +117,8 @@ def regularize_and_factor(
         idx = torch.nonzero(active).squeeze(1)
         if idx.numel() == 0:
             break
-        K = assemble(delta, eps).index_select(0, idx)
-        sub = factorize(K.to(factor_dtype).contiguous())
+        K = tree_map(lambda t: t.index_select(0, idx), assemble(delta, eps))
+        sub = factorize(_cast(K, factor_dtype))
         fac = _put(fac, idx, sub)
         attempts = attempts + active.to(attempts.dtype)
         good = inertia_ok(fac)

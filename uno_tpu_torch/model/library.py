@@ -1,8 +1,9 @@
 """Built-in problems in torch: copies of Hock-Schittkowski problems of
 uno_tpu/model/library.py (hs014, hs015, hs016, hs035, hs038, hs071, hs100)
 with their known optima, and the flagship batch family of uno_tpu's bench
-(n variables, m=2).  `get_problem` also gives the `.nl` fixtures
-(model/library_nl.py)."""
+(n variables, m=2).  `get_problem` also gives the scalable structured
+families under uno_tpu's keys (model/library_cutest.py, e.g.
+"lukvle1_n100") and the `.nl` fixtures (model/library_nl.py)."""
 
 from __future__ import annotations
 
@@ -132,18 +133,32 @@ def hs100() -> NLP:
 
 
 def get_problem(name: str) -> NLP:
-    """One of the built-in Hock-Schittkowski problems, or an `.nl` fixture
-    of tests/fixtures/nl as `nl_<stem>` (model/library_nl.py), by name."""
+    """One of the built-in Hock-Schittkowski problems, a structured family
+    instance under uno_tpu's key (model/library_cutest.py), or an `.nl`
+    fixture of tests/fixtures/nl as `nl_<stem>` (model/library_nl.py), by
+    name."""
+    from uno_tpu_torch.model.library_cutest import REGISTRY
     from uno_tpu_torch.model.library_nl import NL_FIXTURES
     builders = {"hs014": hs014, "hs015": hs015, "hs016": hs016,
                 "hs035": hs035, "hs038": hs038, "hs071": hs071,
                 "hs100": hs100}
     if name in NL_FIXTURES:
         return NL_FIXTURES[name]()
+    if name in REGISTRY:
+        return REGISTRY[name][0]()
     if name not in builders:
-        raise KeyError(f"{name!r}: the port's library has {sorted(builders)} "
+        raise KeyError(f"{name!r}: the port's library has {sorted(builders)}, "
+                       f"the structured families {sorted(REGISTRY)} "
                        f"and the .nl fixtures {sorted(NL_FIXTURES)}")
     return builders[name]()
+
+
+def known_optimum(name: str):
+    """The optimum uno_tpu registers for `name`, or None."""
+    from uno_tpu_torch.model.library_cutest import REGISTRY
+    if name in REGISTRY:
+        return REGISTRY[name][1]
+    return OPTIMA.get(name)
 
 
 def flagship(batch: int, n: int = 8, seed: int = 0):

@@ -9,6 +9,12 @@ Every evaluation method is batched: `x` is (B, n) and `params` is None or a
 tensor whose leading axis is the batch, and the per-instance function is
 mapped with torch.func.vmap.  A single instance is the batch of one.
 
+A model may declare its sparsity (`NLPStructure`: a banded Lagrangian
+Hessian and windowed Jacobian rows); the structured KKT backends
+(linalg/banded_kkt.py) then extract the band with 2b+1 Hessian-vector
+probes and the windows with w Jacobian-vector probes instead of the dense
+matrices.
+
 Sign convention (reference AMPLModel.cpp:38-40):
     L(x, y, z) = sigma * f(x) - y^T c(x) - zL^T (x - xL) - zU^T (x - xU)
 """
@@ -28,17 +34,39 @@ INF = np.inf
 DEFAULT_BOUND_INFINITY = 1e20
 
 
-def const(cache: dict, arr, like, dtype=None):
+def const(cache: dict, arr, like, dtype=None, name: str = ""):
     """`arr` as a tensor on like's device, of like's dtype unless `dtype` is
-    given, made once per (device, dtype) and kept in `cache`: a host-to-device
-    copy on every evaluation would stall the device queue."""
+    given, made once per (name, device, dtype) and kept in `cache`: a
+    host-to-device copy on every evaluation would stall the device queue.
+    Arrays that share a cache need distinct names."""
     dtype = like.dtype if dtype is None else dtype
-    key = (like.device, dtype)
+    key = (name, like.device, dtype)
     t = cache.get(key)
     if t is None:
-        t = cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
-                                         device=like.device)
+        # made outside torch.func's transforms: a tensor made inside a
+        # grad or jvp level is wrapped at that level and cannot be cached
+        with torch._C._DisableFuncTorch():
+            t = cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
+                                             device=like.device)
     return t
+
+
+@dataclass(frozen=True)
+class NLPStructure:
+    """Static sparsity declared on the model (uno_tpu/model/nlp.py:35-57).
+
+    hess_bandwidth: half-bandwidth b of the Lagrangian Hessian (entries
+        (i, j) with |i-j| > b are zero for every (x, y)).
+    jac_starts: (m,) first column constraint row i may touch; its nonzeros
+        lie in [jac_starts[i], jac_starts[i] + jac_width).
+    jac_width: the uniform window width (0 when m == 0).
+    jac_col_limit: columns at or beyond it are not probed by the windowed
+        extraction (homogenize sets it to exclude the slack columns); None
+        probes all."""
+    hess_bandwidth: int
+    jac_starts: Optional[np.ndarray] = None
+    jac_width: int = 0
+    jac_col_limit: Optional[int] = None
 
 
 def _batched(fn, x, *rest, params=None):
@@ -74,6 +102,9 @@ class NLP:
     # objective/constraint scaling factors applied by the scale transform
     f_scale: float = 1.0
     c_scale: Optional[np.ndarray] = None
+    # declared sparsity (banded Hessian / windowed Jacobian), None = dense;
+    # carried through the model transforms
+    structure: Optional[NLPStructure] = None
     _consts: dict = field(default_factory=dict, init=False, compare=False,
                           repr=False)
 
@@ -146,10 +177,70 @@ class NLP:
 
         return _batched(one, x, y, v, sigma, params=params)
 
+    def lagrangian_hessian_band(self, x, y, sigma, params=None):
+        """(B, b+1, n) banded Lagrangian Hessians in lower band storage,
+        band[:, d, j] = H[j+d, j], from min(n, 2b+1) strided Hessian-vector
+        probes (columns j = k mod ncolors share probe k; their images cannot
+        collide within the band), vmapped over the probe axis.  Requires
+        `structure`."""
+        b = self.structure.hess_bandwidth
+        n = self.n
+        ncolors = min(n, 2 * b + 1)
+        cols = np.arange(n)
+        V = const(self._consts, (cols[None, :] % ncolors)
+                  == np.arange(ncolors)[:, None], x, name="hess_probes")
+        d_idx = np.arange(b + 1)[:, None]
+        row = cols[None, :] + d_idx
+        ok = row < n
+        color = const(self._consts, np.repeat((cols % ncolors)[None], b + 1, 0),
+                      x, torch.int64, "hess_color")
+        row_t = const(self._consts, np.where(ok, row, 0), x, torch.int64, "hess_row")
+        ok_t = const(self._consts, ok, x, name="hess_ok")
+
+        def one(x_, y_, s_, p_):
+            def lag_grad(z):
+                g = s_ * grad(self.f)(z, p_)
+                if self.m > 0:
+                    g = g - vjp(lambda w: self.c(w, p_), z)[1](y_)[0]
+                return g
+
+            Hv = vmap(lambda v: jvp(lag_grad, (x_,), (v,))[1])(V)
+            return Hv[color, row_t] * ok_t
+
+        return _batched(one, x, y, sigma, params=params)
+
+    def constraint_jacobian_windows(self, x, params=None):
+        """(B, m, w) windowed Jacobian rows, [:, i, t] = J[i, starts_i + t],
+        from min(w, limit) strided Jacobian-vector probes vmapped over the
+        probe axis; columns at or beyond structure.jac_col_limit (the
+        slack columns) are not probed.  Requires `structure` with
+        jac_starts."""
+        st = self.structure
+        starts, w = st.jac_starts, st.jac_width
+        limit = self.n if st.jac_col_limit is None else st.jac_col_limit
+        ncolors = min(limit, max(w, 1))
+        cols = np.arange(self.n)
+        V = const(self._consts, ((cols[None, :] % ncolors)
+                                 == np.arange(ncolors)[:, None])
+                  & (cols < limit)[None, :], x, name="jac_probes")
+        tcol = starts[:, None] + np.arange(w)[None, :]
+        ok = tcol < limit
+        color = const(self._consts, np.where(ok, tcol, 0) % ncolors, x,
+                      torch.int64, "jac_color")
+        rows = const(self._consts, np.arange(self.m)[:, None], x, torch.int64,
+                     "jac_rows")
+        ok_t = const(self._consts, ok, x, name="jac_ok")
+
+        def one(x_, p_):
+            Jv = vmap(lambda v: jvp(lambda z: self.c(z, p_), (x_,), (v,))[1])(V)
+            return Jv[color, rows] * ok_t
+
+        return _batched(one, x, params=params)
+
     def constraint_violation(self, cx, norm: str = "L1"):
         """Norm of the violation of c_lb <= cx <= c_ub over the last axis."""
-        lb = const(self._consts, self.c_lb, cx)
-        ub = const(self._consts, self.c_ub, cx)
+        lb = const(self._consts, self.c_lb, cx, name="c_lb")
+        ub = const(self._consts, self.c_ub, cx, name="c_ub")
         viol = torch.clamp(lb - cx, min=0.0) + torch.clamp(cx - ub, min=0.0)
         return vector_norm(viol, norm)
 
@@ -180,6 +271,7 @@ def nlp_from_functions(
     c_ub=None,
     y0=None,
     params=None,
+    structure: Optional[NLPStructure] = None,
 ) -> NLP:
     """Convenience constructor.  `f`/`c` may take (x,) or (x, params).
 
@@ -229,4 +321,5 @@ def nlp_from_functions(
     return NLP(
         name=name, n=n, m=m, f=fw, c=cw, x_lb=x_lb, x_ub=x_ub,
         c_lb=c_lb, c_ub=c_ub, x0=x0, y0=y0, params=params,
+        structure=structure,
     )

@@ -6,7 +6,9 @@ Counterpart of uno_tpu/solvers/batch.py: B independent instances of one NLP
 batch is the leading axis of every tensor and the outer loop steps the
 instances that are still running (solvers/ipm.run_ipm), which is the
 semantics of uno_tpu's `vmap(while_loop)`.  That loop already retires
-converged instances, so the bucketed SQP driver is the plain one.
+converged instances, so the bucketed drivers (IPM and SQP) are the plain
+ones under uno_tpu's signatures.  The IPM batch takes every KKT backend of
+build_ipm (the lifted one included); each carries the batch axis.
 
 As in uno_tpu, gradient-based function scaling (scale_functions) uses the
 template instance's scaling (nlp.params at nlp.x0) for the whole batch.
@@ -79,6 +81,17 @@ def build_batch_ipm(nlp: NLP, opts: Options, device="cuda"):
         return run_ipm(step, state, opts, t0)
 
     return prob, run
+
+
+def build_bucketed_batch_ipm(nlp: NLP, opts: Options, params_example=None,
+                             segment: int = 4, min_bucket: int = 1024,
+                             device="cuda"):
+    """uno_tpu's iteration-count bucketing of the batched IPM
+    (uno_tpu/solvers/batch.py:300), which retires converged lanes of a
+    vmapped loop.  The port's loop steps only the running instances
+    already, so this is build_batch_ipm; the bucketing arguments are
+    accepted and have no effect."""
+    return build_batch_ipm(nlp, opts, device)
 
 
 def build_batch_sqp(nlp: NLP, opts: Options, device="cuda"):

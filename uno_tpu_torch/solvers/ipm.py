@@ -15,8 +15,14 @@ uno_tpu runs `vmap(while_loop)`; here the batch is the leading axis of
 every tensor, and each data-dependent loop (the outer iteration, the
 barrier update, the line search, the inertia correction) is a host loop
 capped by the option that bounds it, in which an instance that is done
-keeps its values.  The single instance is the batch of one.  Only the
-dense augmented KKT path is ported.
+keeps its values.  The single instance is the batch of one.
+
+The KKT backend is chosen in `build_ipm` as uno_tpu's is: the dense
+augmented LDL^T (the CUDA kernels), the lifted Cholesky
+(linalg/condensed.py), the banded condensed backend for models that declare
+an NLPStructure (linalg/banded_kkt.py, structured assembly from band and
+window probes, refinement through its exact operator) or the supernodal
+sparse LDL^T (linalg/sparse_kkt.py).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from uno_tpu_torch.ingredients import barrier as bar
 from uno_tpu_torch.ingredients import filters as flt
 from uno_tpu_torch.ingredients.regularization import (pick_factorizer,
                                                       regularize_and_factor)
+from uno_tpu_torch.linalg.banded_kkt import (BandedKKT, dense_from_windows,
+                                             make_banded_kkt_backend)
 from uno_tpu_torch.linalg.ldlt import ldlt_solve
 from uno_tpu_torch.model import transforms
 from uno_tpu_torch.model.nlp import NLP, vector_norm
@@ -311,9 +319,14 @@ def _update_barrier_parameter(ws, opts, mu, x, zl, zu, p, q, zp, zq, is_feas,
 # the solver step
 # --------------------------------------------------------------------------
 
-def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options):
-    """The batched single-outer-iteration function state -> state (dense
-    augmented KKT, Waechter filter line search)."""
+def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options,
+                  kkt_backend=None):
+    """The batched single-outer-iteration function state -> state, with the
+    Waechter filter line search.  kkt_backend: None for the dense
+    augmented LDL^T, or a (factorize, solve[, matvec]) tuple replacing it;
+    with a matvec it is the structured (banded) backend, whose assembly is
+    a BandedKKT and whose matvec is the exact augmented operator of the
+    refinement."""
     if opts.globalization_strategy != "waechter_filter_method" \
             or opts.filter_type != "standard":
         raise NotImplementedError(
@@ -323,11 +336,24 @@ def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options):
         raise NotImplementedError("the port's IPM takes hessian_model='exact'")
     if opts.LS_batch_candidates != 1:
         raise NotImplementedError("the port's IPM takes LS_batch_candidates=1")
+    if kkt_backend:
+        kkt_factorizer, kkt_solver = kkt_backend[0], kkt_backend[1]
+        kkt_matvec = kkt_backend[2] if len(kkt_backend) > 2 else None
+    else:
+        kkt_factorizer = kkt_matvec = None
+        kkt_solver = ldlt_solve
+    banded = kkt_matvec is not None
     n, m = ws.n, ws.m
     nu = opts.l1_constraint_violation_coefficient
     damping = opts.barrier_damping_factor
     eps_machine = float(np.finfo(np.float64).eps)
     kkt32 = opts.kkt_dtype == "float32"
+    if banded:
+        bst = prob.structure
+        slack_cols = prob.slack_of_constraint \
+            if prob.slack_of_constraint is not None \
+            else np.full(m, -1, dtype=np.int64)
+        n0_b = n - int(np.sum(slack_cols >= 0))
 
     def prox_scaling(x_ref):
         s = torch.clamp(1.0 / torch.clamp(torch.abs(x_ref), min=1e-35), max=1.0)
@@ -384,14 +410,28 @@ def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options):
         # -- 1. derivatives at the current x --------------------------------
         g = prob.objective_gradient(s.x, s.params)
         c = prob.constraints(s.x, s.params)
-        J = prob.constraint_jacobian(s.x, s.params)
-        H_lag = prob.lagrangian_hessian(s.x, y_a, sigma, s.params)
+        if banded:
+            # windowed Jacobian (w jvp probes) and Hessian band (2b+1 hvp
+            # probes); the dense J is still built, by a scatter, for the
+            # rhs, the line search and the residuals
+            if m:
+                J_local = prob.constraint_jacobian_windows(s.x, s.params)
+                J = dense_from_windows(J_local, bst.jac_starts, n, slack_cols)
+            else:
+                J_local = s.x.new_zeros((s.x.shape[0], 0, max(bst.jac_width, 1)))
+                J = prob.constraint_jacobian(s.x, s.params)
+            H_band = prob.lagrangian_hessian_band(
+                s.x, y_a, sigma, s.params)[:, :, :n0_b]
+        else:
+            J = prob.constraint_jacobian(s.x, s.params)
+            H_lag = prob.lagrangian_hessian(s.x, y_a, sigma, s.params)
 
         # -- 2. barrier terms (+ the restoration proximal term) -------------
         prox_coef = torch.sqrt(mu)[:, None]
         prox_diag = torch.where(fe, prox_coef * prox_scaling(s.x_ref), 0.0)
         Sigma = bar.barrier_hessian_diag(s.x, zl_a, zu_a, lbj, ubj, hlb, hub)
-        H = H_lag + torch.diag_embed(prox_diag + Sigma)
+        if not banded:
+            H = H_lag + torch.diag_embed(prox_diag + Sigma)
         g_bar = sigma[:, None] * g \
             + bar.barrier_gradient(s.x, lbj, ubj, hlb, hub, mu, damping) \
             + torch.where(fe, prox_coef * prox_scaling(s.x_ref) * (s.x - s.x_ref), 0.0)
@@ -410,30 +450,51 @@ def make_ipm_step(prob: NLP, ws: IPMWorkspace, opts: Options):
             rhs = torch.cat([rhs_x, rhs_c], dim=-1)
         else:
             rhs = rhs_x
-        eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
+        if banded:
+            C0 = D_e if m else s.x.new_zeros((s.x.shape[0], 0))
 
-        def assemble(delta, eps):
-            Hd = H + delta[:, None, None] * eye_n
-            if m == 0:
-                return Hd
-            dual_block = -torch.diag_embed(D_e + eps[:, None])
-            return torch.cat([torch.cat([Hd, J.transpose(-1, -2)], dim=-1),
-                              torch.cat([J, dual_block], dim=-1)], dim=-2)
+            def assemble(delta, eps):
+                sd = prox_diag + Sigma
+                return BandedKKT(H_band=H_band,
+                                 diag0=sd[:, :n0_b] + delta[:, None],
+                                 sig_s=sd[:, n0_b:] + delta[:, None],
+                                 J_local=J_local, C=C0 + eps[:, None])
 
-        # -- 4. inertia-corrected LDL^T -------------------------------------
+            kkt_mv = kkt_matvec
+        else:
+            eye_n = torch.eye(n, dtype=H.dtype, device=H.device)
+
+            def assemble(delta, eps):
+                Hd = H + delta[:, None, None] * eye_n
+                if m == 0:
+                    return Hd
+                dual_block = -torch.diag_embed(D_e + eps[:, None])
+                return torch.cat([torch.cat([Hd, J.transpose(-1, -2)], dim=-1),
+                                  torch.cat([J, dual_block], dim=-1)], dim=-2)
+
+            kkt_mv = _matvec
+
+        # -- 4. inertia-corrected factorization ------------------------------
         dual_reg_param = torch.pow(mu, opts.barrier_regularization_exponent)
         reg = regularize_and_factor(assemble, n, m, dual_reg_param,
-                                    s.prev_delta, opts, block=opts.ldlt_block_size)
+                                    s.prev_delta, opts, block=opts.ldlt_block_size,
+                                    factorizer=kkt_factorizer)
 
-        # -- 5. solve: f32 factors + f64 refinement, or f64 throughout ------
+        # -- 5. solve: f32 factors + f64 refinement, or f64 throughout; the
+        # banded backend refines in f64 too (its lifted tau leaves an
+        # O(tau |w|) error on the equality rows)
         if kkt32:
-            sol = ldlt_solve(reg.fac, rhs.to(torch.float32)).to(rhs.dtype)
+            sol = kkt_solver(reg.fac, rhs.to(torch.float32)).to(rhs.dtype)
             K64 = assemble(reg.delta, reg.eps)
             for _ in range(opts.kkt_refinement_steps):
-                resid = rhs - _matvec(K64, sol)
-                sol = sol + ldlt_solve(reg.fac, resid.to(torch.float32)).to(rhs.dtype)
+                resid = rhs - kkt_mv(K64, sol)
+                sol = sol + kkt_solver(reg.fac, resid.to(torch.float32)).to(rhs.dtype)
         else:
-            sol = ldlt_solve(reg.fac, rhs)
+            sol = kkt_solver(reg.fac, rhs)
+            if banded:
+                K64 = assemble(reg.delta, reg.eps)
+                for _ in range(opts.kkt_refinement_steps):
+                    sol = sol + kkt_solver(reg.fac, rhs - kkt_mv(K64, sol))
         dx = sol[:, :n]
         w = sol[:, n:]
         dy = -w
@@ -851,6 +912,10 @@ class Result:
     num_constraint_evaluations: int
     # per-iteration IPMState trace, populated by solve_ipm(history=True)
     history: list | None = None
+    # set when kkt_formulation="auto" retried a structured model with the
+    # augmented formulation after an algorithmic error (api.solve): the
+    # first attempt's status and iterations
+    retried_after: dict | None = None
 
     @property
     def success(self) -> bool:
@@ -862,17 +927,56 @@ class Result:
                 f"stat={self.stationarity:.2e}, time={self.cpu_time:.3f}s)")
 
 
+DISTRIBUTED_NOT_PORTED = (
+    "ldlt_backend='distributed' (the KKT factorization sharded over several "
+    "cards) belongs to slice 4 of the port, multi-GPU, which is not ported: "
+    "ROADMAP queue 1, item 5")
+
+
+def pick_kkt_backend(prob: NLP, m: int, opts: Options):
+    """uno_tpu's dispatch (uno_tpu/solvers/ipm.py:1068-1127): the lifted
+    Cholesky for kkt_formulation="lifted"; the sparse LDL^T for "sparse",
+    or for "auto" with auto_permute on a model without structure (None,
+    the dense path, where its probe declines); the banded backend for
+    "banded", or for "auto" on a complete declaration (an NLPStructure
+    with jac_starts when m > 0); else None, the dense augmented LDL^T."""
+    form = opts.kkt_formulation
+    st = prob.structure
+    if form == "lifted":
+        from uno_tpu_torch.linalg.condensed import make_lifted_kkt_backend
+        return make_lifted_kkt_backend(prob.n, m, tau=opts.lifted_kkt_relaxation)
+    if form == "sparse" or (form == "auto" and opts.auto_permute and st is None):
+        from uno_tpu_torch.linalg.sparse_kkt import try_make_sparse_kkt_backend
+        return try_make_sparse_kkt_backend(prob, m, opts, force=(form == "sparse"))
+    if form == "banded" or (form == "auto" and st is not None
+                            and (m == 0 or st.jac_starts is not None)):
+        if st is None:
+            raise ValueError("kkt_formulation='banded' requires the model "
+                             "to declare an NLPStructure")
+        if m and st.jac_starts is None:
+            raise ValueError("kkt_formulation='banded' on a constrained "
+                             "model requires NLPStructure.jac_starts")
+        slack_cols = prob.slack_of_constraint \
+            if prob.slack_of_constraint is not None \
+            else np.full(m, -1, dtype=np.int64)
+        n0 = prob.n - int(np.sum(slack_cols >= 0))
+        return make_banded_kkt_backend(
+            prob.n, n0, m, st.jac_starts if m else np.zeros(0, dtype=np.int64),
+            slack_cols, st.hess_bandwidth, st.jac_width,
+            tau=opts.lifted_kkt_relaxation)
+    return None
+
+
 def build_ipm(nlp: NLP, opts: Options):
-    """Setup: scaling, reformulation, workspace, step."""
-    if opts.kkt_formulation not in ("auto", "augmented") \
-            or opts.ldlt_backend == "distributed":
-        raise NotImplementedError(
-            "the port has the dense augmented KKT backend only")
+    """Setup: scaling, reformulation, workspace, KKT backend, step."""
+    if opts.ldlt_backend == "distributed":
+        raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
     scaled = transforms.scale_model(nlp, opts.function_scaling_threshold) \
         if opts.scale_functions else nlp
     prob = transforms.reformulate_for_interior_point(scaled, opts.tolerance)
     ws = _build_workspace(prob)
-    return prob, ws, make_ipm_step(prob, ws, opts)
+    kkt_backend = pick_kkt_backend(prob, ws.m, opts)
+    return prob, ws, make_ipm_step(prob, ws, opts, kkt_backend=kkt_backend)
 
 
 def map_fixed_bound_duals(nlp_orig, y_full_scaled, zl, zu):
