@@ -55,7 +55,19 @@ overruns raises, and the script exits non-zero):
                   against the CPU, uno_tpu's result and route report, and
                   the card's augmented run; chwood_eq_n1000 under
                   auto_permute (detected band, banded backend)
- 19. summary      the {"kernels": [...]} line (each kernel's launches and
+ 19. ipm_mixes    the IPM's ingredient mixes on the flagship family with the
+                  main path's options: the funnel at B=65,536, the Fletcher
+                  filter, the l1 merit, the nonmonotone filter and
+                  LS_batch_candidates=4 at B=8,192 (beside the standard
+                  filter, which the last must equal), each held to
+                  uno_tpu's unsolved set and 64 CPU reruns; hs021 under the
+                  identity and zero Hessians and lukvle1_n100 banded under
+                  the identity, against the CPU
+ 20. sqp_host     the host SQP driver: hs015 and hs071 under the five
+                  presets with sqp_driver="host", filtersqp with a line
+                  search and byrd with a trust region, on the card and on
+                  the CPU, held to uno_tpu's CPU results
+ 21. summary      the {"kernels": [...]} line (each kernel's launches and
                   wrapper calls on its path, as cuda_ldlt counted them),
                   then the last line {"ok": true, "device": {...}}
 With --profile, the flagship batches of the main path and the filtersqp
@@ -94,7 +106,8 @@ BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 300,
            "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
            "byrd_batch": 360, "byrd_single": 180, "nl": 300,
            "structured_kernels": 300, "banded": 600, "lifted": 300,
-           "sparse": 600, "profile": 600, "profile_byrd": 450,
+           "sparse": 600, "ipm_mixes": 300, "sqp_host": 300,
+           "profile": 600, "profile_byrd": 450,
            "profile_structured": 300}
 # the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
 # end two elements into a 16-byte vector
@@ -257,6 +270,67 @@ STEERING_KKT_DIM = 3613
 # auto_permute's detection finds a band here (uno_tpu: Jacobian windows of
 # width 4) and the banded backend solves it
 CHWOOD_NAME = "chwood_eq_n1000"
+# the IPM's ingredient mixes on the flagship family with the main path's
+# options: the funnel at the main path's batch, the others at B=8,192.
+# uno_tpu's CPU run of each of these batches (uno_tpu.solvers.batch.
+# build_batch_ipm over the same instances, JAX_PLATFORMS=cpu) solves every
+# instance (mean 9.28 iterations for the funnel at B=65,536; 9.30, 9.24,
+# 9.35 and 9.30 for the others, max 16), so each batch is held to an empty
+# unsolved set; the port's CPU run equals uno_tpu's there instance for
+# instance
+IPM_MIX_BATCHES = {"funnel_method": dict(globalization_strategy="funnel_method"),
+                   "fletcher_filter_method": dict(globalization_strategy="fletcher_filter_method"),
+                   "l1_merit": dict(globalization_strategy="l1_merit"),
+                   "nonmonotone": dict(filter_type="nonmonotone"),
+                   "LS_batch_candidates=4": dict(LS_batch_candidates=4)}
+IPM_MIX_FULL = "funnel_method"
+IPM_MIX_BATCH = 8192
+IPM_MIX_UNSOLVED = dict.fromkeys(IPM_MIX_BATCHES, ())
+# single instances of the Hessian models, card against CPU (status,
+# iterations, x within IPM_MIX_X_ATOL, objective within 1e-10 relative):
+# hs021 under the identity model as uno_tpu's test runs it (optimal in 372
+# iterations); the two ill-conditioned runs only as long as the card's
+# iterates stay within IPM_MIX_X_ATOL of the CPU's.  hs021 under the zero
+# model: trajectories that part by one ulp stay within 1e-8 for about 30
+# iterations, as uno_tpu's own run from a moved x0 does on the CPU; card
+# against CPU on an H100 80GB HBM3 (700 W), the same in two runs: 2.5e-10
+# at iteration 30, 5.5e-8 at 31.  lukvle1_n100 on the banded backend under
+# the identity model, card against CPU there, the same in three runs:
+# 1.0e-11 at iteration 2, 7.3e-11 at 3, 4.0e-8 at 4, 5.7e-7 at 10 (its
+# CPU banded iterate is 5.3e-6 from its augmented one at 10)
+IPM_MIX_SINGLES = (("hs021", dict(hessian_model="identity", max_iterations=500)),
+                   ("hs021", dict(hessian_model="zero", max_iterations=30)),
+                   ("lukvle1_n100", dict(hessian_model="identity", max_iterations=3)))
+IPM_MIX_X_ATOL = 1e-8
+# the host SQP driver: hs015 and hs071 under the five presets with
+# sqp_driver="host" (ipopt takes its interior-point method, which has no
+# SQP driver), and the two mixes only the host driver runs; uno_tpu's CPU
+# results (uno_tpu.solve, JAX_PLATFORMS=cpu): status, iterations, QPs,
+# objective
+SQP_HOST_REF = {
+    ("ipopt", "hs015", "host"): ("optimal", 17, 17, 306.4999756105925),
+    ("filtersqp", "hs015", "host"): ("optimal", 6, 6, 306.5000000050118),
+    ("funnelsqp", "hs015", "host"): ("optimal", 6, 6, 306.5000000050118),
+    ("filterslp", "hs015", "host"): ("optimal", 3, 3, 306.5000000200015),
+    ("byrd", "hs015", "host"): ("optimal", 6, 6, 306.50004824488906),
+    ("ipopt", "hs071", "host"): ("optimal", 8, 8, 17.01401714517916),
+    ("filtersqp", "hs071", "host"): ("optimal", 5, 5, 17.014017291672168),
+    ("funnelsqp", "hs071", "host"): ("optimal", 5, 5, 17.014017291672168),
+    ("filterslp", "hs071", "host"): ("feasible_small_step", 183, 224, 17.014017381025575),
+    ("byrd", "hs071", "host"): ("optimal", 47, 47, 17.014017291003842),
+    ("filtersqp", "hs015", "LS"): ("algorithmic_error", 5, 5, 221.18821547430997),
+    ("filtersqp", "hs071", "LS"): ("optimal", 5, 5, 17.014017291672168),
+    ("byrd", "hs015", "TR"): ("optimal", 6, 6, 306.50004824713056),
+    ("byrd", "hs071", "TR"): ("optimal", 47, 47, 17.014017291003842),
+}
+# hs071 under filterslp: its LPs' interior-point solutions agree across
+# implementations to about 1e-11 (their tolerance is 1e-8), and near
+# iteration 175 of 183 a trust-region radius test falls either way: the
+# port's CPU run ends at 180 iterations and 220 LPs, uno_tpu's at 183 and
+# 224, both feasible_small_step at the optimum.  This run is held to the
+# status and to the objective within SQP_HOST_SENSITIVE_F_RTOL
+SQP_HOST_SENSITIVE = {("filterslp", "hs071", "host")}
+SQP_HOST_SENSITIVE_F_RTOL = 1e-6
 
 
 class PhaseTimeout(Exception):
@@ -1335,6 +1409,32 @@ def _solve_counted(nlp, device, **kw):
     return res, wall, counts
 
 
+@contextlib.contextmanager
+def largest_factorizations():
+    """Inside, every launch of the LDL^T kernels is noted; yields a dict
+    that holds, by route, the largest [batch, dim, dtype] launched (by dim,
+    then batch), so that the kernels line can hold each route against its
+    plain version at the largest shape a path gave it."""
+    from uno_tpu_torch.linalg import cuda_ldlt
+    largest = {}
+    launch = cuda_ldlt.launch
+
+    def noted(A, *args, **kwargs):
+        p = launch(A, *args, **kwargs)
+        if p is not None:
+            shape = [A.shape[0], A.shape[-1], str(A.dtype).removeprefix("torch.")]
+            old = largest.get(p.route)
+            if old is None or (shape[1], shape[0]) > (old[1], old[0]):
+                largest[p.route] = shape
+        return p
+
+    cuda_ldlt.launch = noted
+    try:
+        yield largest
+    finally:
+        cuda_ldlt.launch = launch
+
+
 def _against_cpu(tag, res, ref, f_rtol, x_atol=None):
     """Equal status and iterations, objective within f_rtol of max(|f|, 1),
     x within x_atol (when given); the gaps."""
@@ -1601,6 +1701,180 @@ def phase_sparse(device="cuda", n=STEERING_N, ref=STEERING_REF,
     return out
 
 
+def ipm_mix_options(mix):
+    """The main path's options under one ingredient mix of IPM_MIX_BATCHES."""
+    return main_path_options().replace(**IPM_MIX_BATCHES[mix])
+
+
+def phase_ipm_mixes(device="cuda", full_batch=MAIN_BATCH, batch=IPM_MIX_BATCH,
+                    rerun=CPU_RERUN, unsolved=IPM_MIX_UNSOLVED):
+    """The IPM under each mix of IPM_MIX_BATCHES on the flagship family:
+    IPM_MIX_FULL at `full_batch`, the others at `batch`, each on `device`
+    (cold: the first run of its options in the process), held to uno_tpu's
+    unsolved instances and, for its first `rerun` instances, to the CPU
+    (equal status and iterations, x within X_ATOL); the standard filter at
+    `batch` too, first, which the LS_batch_candidates=4 batch must equal
+    instance for instance (x within X_ATOL).  Then IPM_MIX_SINGLES against
+    the CPU (status, iterations, objective within 1e-10 relative and x
+    within IPM_MIX_X_ATOL).  Prints wall seconds, iterations, line-search
+    trips and the kernels' launches by route."""
+    import torch
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.solvers import ipm
+    from uno_tpu_torch.solvers.ipm import ALMOST_OPTIMAL, OPTIMAL
+
+    cuda = torch.device(device).type == "cuda"
+    out = {"batches": [], "singles": []}
+    runs = {}
+    for mix in ("standard",) + tuple(IPM_MIX_BATCHES):
+        B = full_batch if mix == IPM_MIX_FULL else batch
+        nlp, x0, params = flagship(B)
+        opts = main_path_options() if mix == "standard" else ipm_mix_options(mix)
+        cuda_ldlt.reset_counts()
+        ipm.reset_counts()
+        t0 = time.monotonic()
+        res = uno_tpu_torch.solve_batch(nlp, x0, params, opts=opts, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {"launches_by_route": dict(cuda_ldlt.launches),
+                  "calls_by_route": dict(cuda_ldlt.calls), **ipm.counts}
+        runs[mix] = res
+        failed = np.nonzero((res.status != OPTIMAL) & (res.status != ALMOST_OPTIMAL))[0]
+        row = {"mix": mix, "batch": B, "solved": res.num_solved,
+               "unsolved": failed.tolist()[:32],
+               "mean_iterations": float(np.mean(res.iterations)),
+               "max_iterations": int(np.max(res.iterations)), "wall_s": wall,
+               "solves_per_s": B / wall, **counts,
+               "launches": sum(counts["launches_by_route"].values())}
+        tag = f"IPM mix {mix}"
+        if cuda and counts["launches_by_route"]["ldlt_warp"] <= 0:
+            raise AssertionError(f"{tag}: ldlt_warp launched 0 times")
+        if res.x.shape != (B, nlp.n) or not np.all(np.isfinite(res.x)):
+            raise AssertionError(f"{tag}: non-finite or misshapen solutions")
+        expected = unsolved.get(mix, ())
+        if mix != "standard" and tuple(failed.tolist()) != tuple(i for i in expected if i < B):
+            raise AssertionError(f"{tag}: unsolved {failed.tolist()[:32]}, "
+                                 f"uno_tpu: {list(expected)}")
+        if mix == "LS_batch_candidates=4":
+            std = runs["standard"]
+            row["x_max_abs_diff_to_standard"] = float(np.max(np.abs(res.x - std.x)))
+            row["standard_line_search_trips"] = out["standard"]["line_search_trips"]
+            if not (np.array_equal(res.status, std.status)
+                    and np.array_equal(res.iterations, std.iterations)
+                    and row["x_max_abs_diff_to_standard"] <= X_ATOL):
+                raise AssertionError(f"{tag}: differs from the standard batch: {row}")
+        if mix != "standard":
+            k = min(rerun, B)
+            ref = uno_tpu_torch.solve_batch(nlp, x0[:k], params[:k], opts=opts,
+                                            device="cpu")
+            diff = np.abs(ref.iterations - res.iterations[:k])
+            row.update(cpu_rerun=k,
+                       iterations_equal=int(np.sum(diff == 0)),
+                       x_max_abs_diff=float(np.max(np.abs(ref.x - res.x[:k]))))
+            if not np.array_equal(ref.status, res.status[:k]) or diff.max() > 0 \
+                    or not row["x_max_abs_diff"] <= X_ATOL:
+                raise AssertionError(f"{tag}: differs from the CPU run: {row}")
+        print(json.dumps(row), flush=True)
+        if mix == "standard":
+            out["standard"] = row
+        else:
+            out["batches"].append(row)
+
+    with largest_factorizations() as largest:
+        for name, over in IPM_MIX_SINGLES:
+            out["singles"].append(_ipm_mix_single(name, over, device))
+    out["singles_largest_by_route"] = largest
+    return out
+
+
+def _ipm_mix_single(name, over, device):
+    """One run of IPM_MIX_SINGLES on `device`, held against the CPU: equal
+    status and iterations, x within IPM_MIX_X_ATOL, the objective within
+    1e-10 relative."""
+    import torch
+    from uno_tpu_torch.model.library import get_problem
+    nlp = get_problem(name)
+    res, wall, counts = _solve_counted(nlp, device, **over)
+    ref = uno_tpu_torch_solve_cpu(nlp, **over)
+    row = {"problem": name, **over, "status": res.status,
+           "iterations": res.iterations, "objective": res.objective,
+           "wall_s": wall, "launches_by_route": counts["launches_by_route"],
+           "calls_by_route": counts["calls_by_route"], "banded": counts["banded"]}
+    row.update(_against_cpu(f"{name} {over}", res, ref, 1e-10, IPM_MIX_X_ATOL))
+    if nlp.structure is not None and counts["banded"]["factorizations"] <= 0:
+        raise AssertionError(f"{name}: the banded backend did not run")
+    if torch.device(device).type == "cuda" \
+            and sum(counts["launches_by_route"].values()) <= 0:
+        raise AssertionError(f"{name} {over}: no LDL^T kernel launched")
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_sqp_host(device="cuda", ref=SQP_HOST_REF):
+    """Each run of `ref` through solve() with the host SQP driver (the
+    preset with sqp_driver="host", or the preset with the mix's mechanism,
+    which only the host driver runs) on `device` and on the CPU: equal
+    status, iterations and QPs, objective within SQP_F_ATOL; each held to
+    uno_tpu's CPU result in `ref` the same way (objective within 1e-8
+    relative).  The run of SQP_HOST_SENSITIVE is held to the status and the
+    objective alone.  ldlt_warp must launch on the card."""
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import get_problem
+    from uno_tpu_torch.solvers import qp
+
+    def options(preset, how):
+        return {"sqp_driver": "host"} if how == "host" \
+            else {"globalization_mechanism": how}
+
+    done = []
+    cuda_ldlt.reset_counts()
+    qp.reset_counts()
+    t0 = time.monotonic()
+    with largest_factorizations() as largest:
+        for preset, name, how in ref:
+            t1 = time.monotonic()
+            res = uno_tpu_torch.solve(get_problem(name), preset=preset, device=device,
+                                      **options(preset, how))
+            done.append((preset, name, how, res, time.monotonic() - t1))
+    wall = time.monotonic() - t0
+    out = {"wall_s": wall, "launches": sum(cuda_ldlt.launches.values()),
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "qp_counts": dict(qp.counts),
+           "largest_by_route": largest, "runs": []}
+    for preset, name, how, res, run_s in done:
+        cpu = uno_tpu_torch.solve(get_problem(name), preset=preset, device="cpu",
+                                  **options(preset, how))
+        status, iterations, qps, objective = ref[(preset, name, how)]
+        out["runs"].append({
+            "preset": preset, "problem": name, "driver": how, "wall_s": run_s,
+            "status": res.status, "iterations": res.iterations,
+            "qps": res.num_subproblems_solved, "objective": res.objective,
+            "cpu": [cpu.status, cpu.iterations, cpu.num_subproblems_solved],
+            "objective_diff": res.objective - cpu.objective,
+            "uno_tpu": [status, iterations, qps],
+            "uno_tpu_objective_rel_gap": abs(res.objective - objective) / abs(objective)})
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
+        raise AssertionError("the host SQP driver launched ldlt_warp 0 times")
+    for r in out["runs"]:
+        key = (r["preset"], r["problem"], r["driver"])
+        got = [r["status"], r["iterations"], r["qps"]]
+        if key in SQP_HOST_SENSITIVE:
+            ok = r["status"] == r["cpu"][0] == r["uno_tpu"][0] \
+                and r["uno_tpu_objective_rel_gap"] <= SQP_HOST_SENSITIVE_F_RTOL
+        else:
+            ok = got == r["cpu"] == r["uno_tpu"] \
+                and abs(r["objective_diff"]) <= SQP_F_ATOL \
+                and r["uno_tpu_objective_rel_gap"] <= 1e-8
+        if not ok:
+            raise AssertionError(f"host SQP driver: {r}")
+    return out
+
+
 def phase_profile_structured(top=12, n=LUKVLE1_N):
     """lukvle1 at n once more (warm: the banded phase solved it) under
     torch.profiler: the device's busy share, the top device kernels and
@@ -1693,6 +1967,8 @@ def main(argv=None):
     banded_path = run_phase("banded", phase_banded)
     lifted = run_phase("lifted", phase_lifted)
     sparse = run_phase("sparse", phase_sparse)
+    ipm_mixes = run_phase("ipm_mixes", phase_ipm_mixes)
+    sqp_host = run_phase("sqp_host", phase_sqp_host)
     profiled = None
     if args.profile:
         profiled = run_phase("profile", phase_profile)
@@ -1732,6 +2008,20 @@ def main(argv=None):
     catena_row = check_kernel(1, CATENA_KKT_DIM, "float64", seed=13)
     lifted_row = check_kernel(LIFTED_BATCH, MAIN_KKT_DIM, "float64", seed=14)
     steering_row = check_kernel(1, STEERING_KKT_DIM, "float64", seed=15)
+    # the IPM-mix batches at B=8,192 (dim 12, float32; the funnel's batch
+    # has the main path's shape, `batched`); the IPM-mix singles and the
+    # host SQP driver at the largest shape each route was given on their run
+    mix_row = check_kernel(IPM_MIX_BATCH, MAIN_KKT_DIM, "float32", seed=16)
+    mix_paths = {b["mix"]: b for b in ipm_mixes["batches"]}
+    mix_single_rows = {route: check_kernel(*shape, seed=17) for route, shape
+                       in ipm_mixes["singles_largest_by_route"].items()}
+    host_rows = {route: check_kernel(*shape, seed=18) for route, shape
+                 in sqp_host["largest_by_route"].items()}
+    mix_singles = {"launches_by_route": {}, "calls_by_route": {}}
+    for row in ipm_mixes["singles"]:
+        for key in mix_singles:
+            for route, k in row[key].items():
+                mix_singles[key][route] = mix_singles[key].get(route, 0) + k
 
     def row_of(rows, batch, dim, dtype_name):
         return next(r for r in rows if (r["batch"], r["dim"], r.get("dtype"))
@@ -1779,6 +2069,16 @@ def main(argv=None):
                      BATCHED, lifted, "ldlt_warp", lifted_row),
         kernel_entry("ldlt_panel (sparse path, steering initial multipliers)",
                      SINGLE, sparse["steering"], "ldlt_panel", steering_row),
+        kernel_entry("ldlt_warp (IPM-mix batched path, funnel B=65,536)", BATCHED,
+                     mix_paths[IPM_MIX_FULL], "ldlt_warp", batched),
+        *(kernel_entry(f"ldlt_warp (IPM-mix batched path, {mix} B=8,192)",
+                       BATCHED, mix_paths[mix], "ldlt_warp", mix_row)
+          for mix in IPM_MIX_BATCHES if mix != IPM_MIX_FULL),
+        *(kernel_entry(f"{route} (IPM-mix single-instance path)", SINGLE,
+                       mix_singles, route, row)
+          for route, row in mix_single_rows.items()),
+        *(kernel_entry(f"{route} (host SQP single-instance path)", SINGLE,
+                       sqp_host, route, row) for route, row in host_rows.items()),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
@@ -1792,11 +2092,14 @@ def main(argv=None):
                        "byrd_single": byrd_single, "nl": nl,
                        "structured_kernels": structured_kernels,
                        "banded": banded_path, "lifted": lifted, "sparse": sparse,
+                       "ipm_mixes": ipm_mixes, "sqp_host": sqp_host,
                        "path_kernels": [batched, single_row, n32_row, sqp_row,
                                         fit_row, byrd_row, byrd_fit_row,
                                         byrd_single_row, *nl_rows.values(),
                                         nl_cli_row, catena_row, lifted_row,
-                                        steering_row],
+                                        steering_row, mix_row,
+                                        *mix_single_rows.values(),
+                                        *host_rows.values()],
                        "profile": profiled, "kernels": kernels,
                        "total_s": total}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """uno_tpu_torch on the card: the LDL^T kernels (ldlt_warp up to dim 32,
 ldlt_column up to 64, ldlt_panel above) against their plain version, and
-the batch solves (ipopt and filtersqp) through them.  Marked `cuda`; each
+the batch solves (ipopt and filtersqp), the IPM's ingredient mixes and the
+host SQP driver through them.  Marked `cuda`; each
 test skips where torch sees no card.  On the card:
 pytest -m cuda tests/test_torch_cuda.py"""
 
@@ -137,3 +138,19 @@ def test_sqp_batch_on_the_card_matches_cpu(card):
 
 def test_sqp_single_instances_on_the_card_match_cpu(card):
     chip_smoke.phase_sqp_single("cuda")
+
+
+def test_ipm_mix_batches_on_the_card_match_cpu(card):
+    """chip_smoke.py's ipm_mixes phase at B=256: every mix solves every
+    instance, equal to the CPU on 16 reruns, LS_batch_candidates=4 equal to
+    the standard filter, and the Hessian-model singles against the CPU."""
+    out = chip_smoke.phase_ipm_mixes("cuda", full_batch=256, batch=256, rerun=16)
+    for row in out["batches"]:
+        assert row["solved"] == 256 and row["launches_by_route"]["ldlt_warp"] > 0
+
+
+def test_host_sqp_driver_on_the_card_matches_cpu(card):
+    """chip_smoke.py's sqp_host phase: the host driver on hs015 and hs071,
+    card against CPU and uno_tpu's recorded results."""
+    out = chip_smoke.phase_sqp_host("cuda")
+    assert out["launches_by_route"]["ldlt_warp"] > 0

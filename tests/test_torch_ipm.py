@@ -202,6 +202,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import uno_tpu_torch, uno_tpu_torch.interop, chip_smoke\n"
         "import uno_tpu_torch.linalg.cuda_ldlt, uno_tpu_torch.model.library\n"
         "import uno_tpu_torch.solvers.qp, uno_tpu_torch.solvers.sqp_fused\n"
+        "import uno_tpu_torch.solvers.sqp\n"
         "import uno_tpu_torch.solvers.batch, uno_tpu_torch.api\n"
         "import uno_tpu_torch.io.nl, uno_tpu_torch.model.library_nl\n"
         "import uno_tpu_torch.__main__\n"

@@ -181,21 +181,25 @@ def test_flagship_filtersqp_batch_matches_uno_tpu_batch(rows):
     assert solved.tolist() == [int(i) not in UNSOLVED for i in idx]
 
 
-def test_byrd_and_host_drivers_raise_not_implemented(monkeypatch):
-    """The host SQP drivers still raise; byrd routes to the fused byrd
-    driver in solve and solve_batch, and is_byrd_family agrees with
-    uno_tpu's on every preset."""
+def test_byrd_and_host_drivers_route(monkeypatch):
+    """sqp_driver="host" reaches the host driver (solvers/sqp.solve_sqp)
+    for each SQP preset; byrd routes to the fused byrd driver in solve and
+    solve_batch, and is_byrd_family agrees with uno_tpu's on every
+    preset."""
+    from uno_tpu_torch.solvers import sqp as host_sqp
     tn = t_problem("hs015")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        uno_tpu_torch.solve(tn, preset="filtersqp", sqp_driver="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        uno_tpu_torch.solve(tn, preset="byrd", sqp_driver="host", device="cpu")
 
     class Routed(Exception):
         pass
 
     def routed(*args, **kwargs):
         raise Routed
+
+    with monkeypatch.context() as host:
+        host.setattr(host_sqp, "solve_sqp", routed)
+        for name in ("filtersqp", "funnelsqp", "filterslp", "byrd"):
+            with pytest.raises(Routed):
+                uno_tpu_torch.solve(tn, preset=name, sqp_driver="host", device="cpu")
 
     monkeypatch.setattr(tsqp, "solve_byrd_fused", routed)
     monkeypatch.setattr(tsqp, "build_byrd_fused", routed)

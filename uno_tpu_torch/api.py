@@ -1,7 +1,11 @@
 """Top-level solve API (the reference's Uno::solve, Uno.cpp:44-98);
-counterpart of uno_tpu/api.py.  Routes the ipopt preset to the
-interior-point solver, filtersqp, funnelsqp and filterslp to the fused
-trust-region SQP driver, and byrd to the fused line-search SQP driver.
+counterpart of uno_tpu/api.py.  Routes the interior-point method (the
+ipopt preset, any strategy and Hessian model) to solvers/ipm.py; the SQP
+family as uno_tpu does: the trust region with feasibility restoration
+(filtersqp, funnelsqp, filterslp) to the fused trust-region driver, byrd
+(line search, l1 relaxation, l1 merit) to the fused line-search driver,
+and every other mechanism / relaxation / strategy mix, or any preset with
+sqp_driver="host", to the host driver (solvers/sqp.py).
 With auto_permute, a model without declared structure is probed and, when
 RCM finds a band, solved permuted on the banded backend, its x, zl and zu
 mapped back; under kkt_formulation="auto" an IPM solve of a structured
@@ -22,12 +26,6 @@ from uno_tpu_torch.model.nlp import NLP
 from uno_tpu_torch.options import Options, preset as _preset
 from uno_tpu_torch.solvers.batch import resolve_device
 from uno_tpu_torch.solvers.ipm import Result, solve_ipm
-
-HOST_SQP_NOT_PORTED = (
-    "the host SQP drivers (uno_tpu's solvers/sqp.py, sqp_driver='host', "
-    "and the mechanism / relaxation mixes only they run) are not ported: "
-    "ROADMAP queue 1, item 3")
-
 
 def is_byrd_family(options: Options) -> bool:
     """True iff this configuration routes to the fused byrd driver (LS +
@@ -128,10 +126,12 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
             and (byrd or (options.globalization_mechanism == "TR"
                           and options.constraint_relaxation_strategy
                           == "feasibility_restoration")))
-        if not fused:
-            raise NotImplementedError(HOST_SQP_NOT_PORTED)
-        from uno_tpu_torch.solvers import sqp_fused
-        run = sqp_fused.solve_byrd_fused if byrd else sqp_fused.solve_sqp_fused
+        if fused:
+            from uno_tpu_torch.solvers import sqp_fused
+            run = sqp_fused.solve_byrd_fused if byrd else sqp_fused.solve_sqp_fused
+        else:
+            from uno_tpu_torch.solvers import sqp
+            run = sqp.solve_sqp
     early = _preflight(nlp)
     if early is not None:
         return early

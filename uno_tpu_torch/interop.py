@@ -6,7 +6,11 @@ names as uno_tpu's IPMState, SQPFState and ByrdFState; "filter" holds the
 takes such a dict, with the batch as the leading axis of every array (a
 single uno_tpu state gets one with `arr[None]`), and the state class
 (IPMState, the default, sqp_fused.SQPFState or sqp_fused.ByrdFState), so
-that a test can start both packages from the same iterate."""
+that a test can start both packages from the same iterate.
+
+`sqp_iterate_from` takes an iterate of uno_tpu's host SQP driver (any
+object with the fields of solvers/sqp.SQPIterate, its progress included)
+and gives the port's, every array a float64 copy."""
 
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from uno_tpu_torch.ingredients.filters import FilterState
 from uno_tpu_torch.solvers.ipm import IPMState
+from uno_tpu_torch.solvers.sqp import Progress, SQPIterate
 
 
 def _tensor(a, device):
@@ -51,3 +56,16 @@ def state_to_numpy(state) -> dict:
         else:
             out[name] = v.cpu().numpy()
     return out
+
+
+def sqp_iterate_from(it) -> SQPIterate:
+    def arr(v):
+        return None if v is None else np.array(v, dtype=np.float64)
+
+    values = {name: arr(getattr(it, name)) for name in
+              ("x", "ev", "y", "zl", "zu", "y_f", "zl_f", "zu_f", "zl_el",
+               "c", "g", "J")}
+    pr = it.progress
+    progress = None if pr is None else Progress(
+        float(pr.infeasibility), float(pr.objective), float(pr.auxiliary))
+    return SQPIterate(f=float(it.f), progress=progress, **values)

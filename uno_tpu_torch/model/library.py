@@ -1,5 +1,6 @@
 """Built-in problems in torch: copies of Hock-Schittkowski problems of
-uno_tpu/model/library.py (hs014, hs015, hs016, hs035, hs038, hs071, hs100)
+uno_tpu/model/library.py (hs014, hs015, hs016, hs021, hs035, hs038, hs071,
+hs100)
 with their known optima, and the flagship batch family of uno_tpu's bench
 (n variables, m=2).  `get_problem` also gives the scalable structured
 families under uno_tpu's keys (model/library_cutest.py, e.g.
@@ -16,7 +17,7 @@ HS015_OPTIMUM = 306.5
 # the Hock-Schittkowski optima (uno_tpu/model/library.py); hs016 has a
 # second local optimum, 3.9820604541
 OPTIMA = {"hs014": 9.0 - 2.875 * np.sqrt(7.0), "hs015": HS015_OPTIMUM,
-          "hs016": 0.25, "hs035": 1.0 / 9.0, "hs038": 0.0,
+          "hs016": 0.25, "hs021": -99.96, "hs035": 1.0 / 9.0, "hs038": 0.0,
           "hs071": 17.0140173, "hs100": 680.6300573}
 
 
@@ -62,6 +63,22 @@ def hs016() -> NLP:
         "hs016", f, c, x0=[-2.0, 1.0],
         x_lb=[-2.0, -INF], x_ub=[0.5, 1.0],
         c_lb=[0.0, 0.0], c_ub=[INF, INF],
+    )
+
+
+def hs021() -> NLP:
+    # min 0.01 x1^2 + x2^2 - 100  s.t. 10 x1 - x2 >= 10, 2 <= x1 <= 50,
+    # -50 <= x2 <= 50: a convex QP, uno_tpu's test of the Hessian models
+    def f(x):
+        return 0.01 * x[0] ** 2 + x[1] ** 2 - 100.0
+
+    def c(x):
+        return torch.stack([10.0 * x[0] - x[1]])
+
+    return nlp_from_functions(
+        "hs021", f, c, x0=[-1.0, -1.0],
+        x_lb=[2.0, -50.0], x_ub=[50.0, 50.0],
+        c_lb=[10.0], c_ub=[INF],
     )
 
 
@@ -140,7 +157,7 @@ def get_problem(name: str) -> NLP:
     from uno_tpu_torch.model.library_cutest import REGISTRY
     from uno_tpu_torch.model.library_nl import NL_FIXTURES
     builders = {"hs014": hs014, "hs015": hs015, "hs016": hs016,
-                "hs035": hs035, "hs038": hs038, "hs071": hs071,
+                "hs021": hs021, "hs035": hs035, "hs038": hs038, "hs071": hs071,
                 "hs100": hs100}
     if name in NL_FIXTURES:
         return NL_FIXTURES[name]()

@@ -1,4 +1,5 @@
-"""Batched drivers with per-instance convergence masks: the IPM (ipopt)
+"""Batched drivers with per-instance convergence masks: the IPM (ipopt,
+under any globalization strategy, Hessian model and line-search width)
 and the fused SQP drivers (filtersqp, funnelsqp, filterslp, byrd).
 
 Counterpart of uno_tpu/solvers/batch.py: B independent instances of one NLP
