@@ -7,16 +7,23 @@ the port builds and runs on the card.
 Phases, each with its own wall-clock budget (a phase that fails or
 overruns raises, and the script exits non-zero):
   1. device       a CUDA card is there; prints nvidia-smi's name and power limit
-  2. build        nvcc builds csrc/ldlt.cu and g++ csrc/nlread.cpp (timed)
+  2. build        nvcc builds csrc/*.cu (one nvcc each, at once) and g++
+                  csrc/nlread.cpp (timed); prints each kernel's registers
+                  and spills as ptxas reports them
   3. kernels      the LDL^T kernels (ldlt_warp up to dim 32, ldlt_column up
                   to 64, ldlt_panel above) against their plain PyTorch
                   versions on the card, at dims 12 to 516 (the route edges
                   31/32/33/64/65 among them) in float32 and float64;
                   ldlt_column's factors must equal the column form's bit for
                   bit, and ldlt_panel is timed at its shapes too; times with
-                  CUDA events, and counts the kernels a call launches; then
-                  the kernels against the column form, bit for bit, at the
-                  dims of the SQP's multiplier fits
+                  CUDA events, and counts the kernels a call launches;
+                  ldlt_column timed the same way at the first and last dim
+                  of each of its buckets (B=1 and a ragged batch) and at the
+                  batches where plan() changes its threads per instance;
+                  ldlt_column against the column form, bit for bit, at every
+                  dim 33-64 and those batches; then the kernels against the
+                  column form, bit for bit, at the dims of the SQP's
+                  multiplier fits
   4. kernels_large  the same for single instances of dim 640 and 1280
   5. main path    the flagship family (n=8, m=2) at B=65,536 through
                   solve_batch, with the kernels' launch counts; the first
@@ -91,6 +98,7 @@ import argparse
 import contextlib
 import io
 import json
+import re
 import shutil
 import signal
 import subprocess
@@ -122,6 +130,15 @@ LARGE_DIMS = (640, 1280)
 STRUCT_INIT_DIM = 8190
 # above this dim the plain version is timed eagerly, not in a CUDA graph
 PLAIN_GRAPH_MAX_DIM = 4096
+# ldlt_column, which is compiled for each bucket of 8 dims: the first and
+# last dim of every bucket, timed at B=1 and at a ragged batch beside
+# ldlt_panel; the dims of the n=32 path and of the largest bucket timed on
+# both sides of each batch where plan() changes their threads per
+# instance; and every dim 33-64 at all those batches, untimed, against the
+# column form bit for bit
+COLUMN_EDGE_DIMS = (33, 40, 41, 48, 49, 56, 57, 63, 64)
+COLUMN_SWITCH_DIMS = (36, 64)
+COLUMN_RAGGED_BATCH = 777
 # the dims of the QP multiplier fits' normal equations (m + 2n of each QP)
 # on the SQP paths: hs015's, hs071's and the flagship's optimality and
 # restoration QPs (byrd's relaxed QPs have the restoration QPs' widths:
@@ -382,6 +399,21 @@ def phase_device():
 # 2. build
 # ---------------------------------------------------------------------------
 
+def ptxas_report(log):
+    """Each kernel's registers and spill bytes from nvcc -Xptxas=-v's
+    output, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from uno_tpu_torch.io import nl as nl_io
     from uno_tpu_torch.linalg import cuda_ldlt
@@ -389,14 +421,14 @@ def phase_build():
     path = cuda_ldlt.build()
     seconds = time.monotonic() - t0
     print(f"built {path.name} in {seconds:.2f} s", flush=True)
-    for line in cuda_ldlt.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  " + line.strip(), flush=True)
+    kernels = ptxas_report(cuda_ldlt.build_log)
+    for name, info in kernels.items():
+        print(f"  {name}: {info}", flush=True)
     t0 = time.monotonic()
     nl_path = nl_io.build()
     nl_seconds = time.monotonic() - t0
     print(f"built {nl_path.name} in {nl_seconds:.2f} s", flush=True)
-    return {"seconds": seconds, "library": path.name,
+    return {"seconds": seconds, "library": path.name, "ptxas": kernels,
             "nlread_seconds": nl_seconds, "nlread_library": nl_path.name}
 
 
@@ -665,11 +697,62 @@ def check_fit_exact(batch, dim, seed=0):
     return row
 
 
+def column_batches():
+    """The batches ldlt_column is checked at: 1, 2, a ragged one, and each
+    batch where plan() changes its threads per instance with the one just
+    under it."""
+    from uno_tpu_torch.linalg import cuda_ldlt
+    out = {1, 2, COLUMN_RAGGED_BATCH}
+    for least in cuda_ldlt.COLUMN_SWITCH_BATCHES:
+        out |= {least - 1, least}
+    return sorted(out)
+
+
+def check_column_exact(batches, dims, dtype_name):
+    """ldlt_column's L, d and inertia against the column form's, bit for
+    bit (torch.equal), at every batch and dim; raises on the first that
+    differs.  Returns the cases checked."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.linalg.ldlt import ldlt_factor
+    dtype = getattr(torch, dtype_name)
+    for batch in batches:
+        for dim in dims:
+            K, _ = barrier_kkt_like(batch, dim, seed=batch + dim)
+            A = torch.as_tensor(K, dtype=dtype, device="cuda").contiguous()
+            with cuda_ldlt.uncounted():
+                fk = cuda_ldlt.ldlt_factor_cuda(A)
+            fc = ldlt_factor(A)
+            if cuda_ldlt.plan(batch, dim, dtype).route != "ldlt_column" or not all(
+                    torch.equal(x, y) for x, y in zip(fk, fc)):
+                raise AssertionError(f"ldlt_column ({batch}, {dim}) {dtype_name}: "
+                                     "differs from the column form")
+    row = {"check": "column_exact", "dtype": dtype_name, "dims": list(dims),
+           "batches": list(batches), "cases": len(batches) * len(dims)}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def phase_kernels():
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
     rows = []
     for dtype_name in ("float32", "float64"):
         for dim in KERNEL_DIMS:
             rows.append(check_kernel(KERNEL_BATCH[dim], dim, dtype_name))
+    batches = column_batches()
+    for dtype_name in ("float32", "float64"):
+        for dim in COLUMN_EDGE_DIMS:
+            for batch in (1, COLUMN_RAGGED_BATCH):
+                rows.append(check_kernel(batch, dim, dtype_name, seed=dim))
+        dtype = getattr(torch, dtype_name)
+        for dim in COLUMN_SWITCH_DIMS:
+            for batch in batches:
+                if batch > 1 and (cuda_ldlt.plan(batch - 1, dim, dtype).group
+                                  != cuda_ldlt.plan(batch, dim, dtype).group):
+                    rows += [check_kernel(b, dim, dtype_name, seed=dim)
+                             for b in (batch - 1, batch)]
+        rows.append(check_column_exact(batches, range(33, 65), dtype_name))
     rows += [check_fit_exact(SQP_BATCH, dim, seed=dim) for dim in FIT_DIMS]
     return rows
 
@@ -1927,8 +2010,9 @@ def kernel_entry(name, replaces, path, route, row, **extra):
     adds keys."""
     launches = path["launches_by_route"][route]
     calls = path["calls_by_route"][route]
+    source = "ldlt_column.cu" if route == "ldlt_column" else "ldlt.cu"
     return {"name": name, "route": "cuda",
-            "source": "uno_tpu_torch/csrc/ldlt.cu", "replaces": replaces,
+            "source": f"uno_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2024,7 +2108,7 @@ def main(argv=None):
                 mix_singles[key][route] = mix_singles[key].get(route, 0) + k
 
     def row_of(rows, batch, dim, dtype_name):
-        return next(r for r in rows if (r["batch"], r["dim"], r.get("dtype"))
+        return next(r for r in rows if (r.get("batch"), r.get("dim"), r.get("dtype"))
                     == (batch, dim, dtype_name))
 
     def at(row):

@@ -46,10 +46,15 @@ def test_warp_kernel_batch_sizes(card, batch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dim", [3, 40])
+@pytest.mark.parametrize("dim", [3, 33, 40, 50, 64])
 def test_zero_pivot(card, dim, dtype):
     """An exactly singular matrix: the third pivot is 0, the _safe clamp
-    keeps L finite, and the inertia counts the pivot as zero."""
+    keeps L finite, and the inertia counts the pivot as zero.  Then NaN
+    pivots: the inertia follows _inertia's NaN rule (a NaN in d makes the
+    threshold NaN: no pivot counts as zero, NaN pivots count nowhere).  At a
+    NaN first pivot the factors equal the plain version's, NaN for NaN; at
+    a later one the plain version's full-matrix update spreads the NaN over
+    every entry, the kernel's over the trailing entries only."""
     A = torch.eye(dim, dtype=torch.float64)
     A[:3, :3] = torch.tensor([[1.0, 0.0, 1.0], [0.0, 1.0, 1.0], [1.0, 1.0, 2.0]])
     A = A.to(dtype=dtype, device=card)[None].repeat(5, 1, 1).contiguous()
@@ -62,6 +67,21 @@ def test_zero_pivot(card, dim, dtype):
     assert fac.num_pos.tolist() == [dim - 1] * 5 and fac.num_neg.tolist() == [0] * 5
     for got, want in zip(fac[2:], _inertia(fac.d, 1e-32)):
         assert torch.equal(got, want)
+    if dim <= 32:
+        return
+    A[0, 0, 0] = float("nan")         # the first pivot
+    A[1:, 4, 4] = float("nan")        # a later one, after the zero pivot
+    fac = cuda_ldlt.ldlt_factor_cuda(A)
+    plain = cuda_ldlt.plain_factorizer(dim)(A)
+    for got, want in zip(fac[:2], plain[:2]):
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0, equal_nan=True)
+    assert fac.d[0].isnan().all() and fac.d[1:, 4:].isnan().all()
+    assert torch.equal(fac.d[1:, :4], A.new_tensor([1.0, 1.0, 0.0, 1.0]).expand(4, 4))
+    assert torch.isfinite(fac.L[1:, :, :4]).all()
+    for got, want in zip(fac[2:], _inertia(fac.d, 1e-32)):
+        assert torch.equal(got, want)
+    assert fac.num_pos.tolist() == [0] + [3] * 4
+    assert fac.num_neg.tolist() == [0] * 5 and fac.num_zero.tolist() == [0] * 5
 
 
 def test_kernel_counts_launches_and_rejects_bad_inputs(card):
@@ -98,19 +118,26 @@ def test_batch_solve_on_the_card_matches_cpu(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dim", [33, 34, 36, 40, 47, 63, 64])
+@pytest.mark.parametrize("dim", range(33, 65))
 def test_column_kernel_equals_the_column_form(card, dim, dtype):
     """ldlt_column repeats ldlt_factor's operations in its order: L, d and
-    the inertia equal bit for bit, for batches that fill a block and for
-    ragged ones."""
+    the inertia equal bit for bit, at B=1, 2, a ragged batch, each batch
+    where plan() changes the threads per instance and its neighbours, and
+    the sweep's batch; every group of threads at a small batch."""
     from uno_tpu_torch.linalg.ldlt import ldlt_factor
-    for batch in (1, 3, 257):
+    for batch in chip_smoke.column_batches() + [chip_smoke.N32_BATCH]:
         K, _ = chip_smoke.barrier_kkt_like(batch, dim, seed=dim + batch)
         A = torch.as_tensor(K, dtype=dtype, device=card).contiguous()
         fk, fc = cuda_ldlt.ldlt_factor_cuda(A), ldlt_factor(A)
         assert cuda_ldlt.plan(batch, dim, dtype).route == "ldlt_column"
         for name in LDLT_FIELDS:
             assert torch.equal(getattr(fk, name), getattr(fc, name)), (batch, name)
+    for group in cuda_ldlt.column_groups_for(dim):
+        outs = (torch.empty_like(A[:3]), torch.empty_like(fc.d[:3]),
+                *(torch.empty_like(c[:3]) for c in fc[2:]))
+        cuda_ldlt.launch(A[:3].contiguous(), *outs, group=group)
+        for got, name in zip(outs, LDLT_FIELDS):
+            assert torch.equal(got, getattr(fc, name)[:3]), (group, name)
 
 
 LDLT_FIELDS = ("L", "d", "num_pos", "num_neg", "num_zero")

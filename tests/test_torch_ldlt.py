@@ -174,21 +174,25 @@ def test_markstein_division_is_correctly_rounded():
         assert q == x / y_, (x, y_)
 
 
-PLAN_DIMS = [1, 2, 6, 8, 9, 12, 16, 17, 31, 32, 33, 34, 63, 64, 65, 66, 100,
+PLAN_DIMS = [1, 2, 6, 8, 9, 12, 16, 17, 31, 32, *range(33, 65), 65, 66, 100,
              516, 640, 1280, 4097, 46340]
+# ldlt_column's batches: 1, 2, the sweep's, and each batch where plan()
+# changes the threads per instance with its two neighbours
+COLUMN_BATCHES = sorted({1, 2, 8192} | {least + k for least in cuda_ldlt.COLUMN_SWITCH_BATCHES
+                                        for k in (-1, 0, 1)})
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dim", PLAN_DIMS)
 def test_plan_routes_and_sizes(dim, dtype):
     """The launch plan the C side checks: ldlt_warp up to dim 32,
-    ldlt_column up to 64 (a warp per instance, its matrix in rows of odd
-    stride), ldlt_panel above it with 2 ceil(dim/32) - 1 launches (the
-    ragged last panel has no trailing update; it may be forced at 33-64),
-    shared memory an H100 block can have, grids the card takes, and every
-    instance covered."""
+    ldlt_column up to 64 (one instance a block, or two of 16 threads, its
+    threads per instance set by the batch, dim and dtype), ldlt_panel above it with 2 ceil(dim/32) - 1 launches
+    (the ragged last panel has no trailing update; it may be forced at
+    33-64), shared memory an H100 block can have, grids the card takes, and
+    every instance covered."""
     item = torch.empty((), dtype=dtype).element_size()
-    for batch in (1, 3, 132, 65536):
+    for batch in sorted({1, 3, 132, 65536} | set(COLUMN_BATCHES)):
         if batch * dim * dim > 2**33:
             continue
         plans = [cuda_ldlt.plan(batch, dim, dtype)]
@@ -196,13 +200,38 @@ def test_plan_routes_and_sizes(dim, dtype):
                                   "ldlt_column" if dim <= 64 else "ldlt_panel")
         if plans[0].route == "ldlt_column":
             plans.append(cuda_ldlt.plan(batch, dim, dtype, route="ldlt_panel"))
+            plans += [cuda_ldlt.plan(batch, dim, dtype, group=g)
+                      for g in cuda_ldlt.column_groups_for(dim)]
+            if dim > cuda_ldlt.COLUMN_GROUP16_MAX_DIM:
+                with pytest.raises(ValueError):
+                    cuda_ldlt.plan(batch, dim, dtype, group=16)
         else:
             with pytest.raises(ValueError):
                 cuda_ldlt.plan(batch, dim, dtype, route="ldlt_column")
+            with pytest.raises(ValueError):
+                cuda_ldlt.plan(batch, dim, dtype, group=32)
         for p in plans:
             _check_plan(p, batch, dim, item)
     with pytest.raises(ValueError):
         cuda_ldlt.plan(0, dim, dtype)
+
+
+def test_column_group_switches_at_its_batches():
+    """Two warps an instance until the batch fills the card; from the
+    switch batches, 16 threads at dims up to 40 and 32 in float64 above
+    56; never a group without a kernel for the dim."""
+    for item in (4, 8):
+        for dim in range(33, 65):
+            groups = [cuda_ldlt.column_group(b, dim, item) for b in range(1, 8193)]
+            assert groups[0] == 64 and groups == sorted(groups, reverse=True)
+            assert set(groups) <= set(cuda_ldlt.column_groups_for(dim))
+    switches = {(36, 4): (4096, 16), (40, 8): (2048, 16), (64, 8): (1024, 32),
+                (57, 8): (1024, 32)}
+    for (dim, item), (least, group) in switches.items():
+        assert cuda_ldlt.column_group(least, dim, item) == group
+        assert cuda_ldlt.column_group(least - 1, dim, item) == 64
+    assert {cuda_ldlt.column_group(8192, dim, 4) for dim in (41, 50, 64)} == {64}
+    assert cuda_ldlt.column_groups_for(41) == (32, 64)
 
 
 def _check_plan(p, batch, dim, item):
@@ -216,10 +245,17 @@ def _check_plan(p, batch, dim, item):
         assert p.grids == (-(-batch // per_block),)
         assert p.launches == 1
     elif p.route == "ldlt_column":
-        warps = p.block[0] // 32
-        assert 1 <= warps <= cuda_ldlt.COLUMN_WARPS
-        assert p.smem[0] == warps * dim * (dim | 1) * item <= cuda_ldlt.SMEM_DEFAULT
-        assert p.grids == (-(-batch // warps),)
+        # one instance a block, over P x Q threads of a bucket N that holds
+        # the dim and is a multiple of 8 and of P; shared memory holds the
+        # P runs of multipliers, the column and the pivots, not the matrix
+        P, Q = cuda_ldlt.COLUMN_GROUPS[p.group]
+        per_block = 2 if p.group == 16 else 1     # a warp's two instances
+        assert p.group == P * Q and p.block == (per_block * p.group,)
+        assert p.grids == (-(-batch // per_block),)
+        N, smem = cuda_ldlt.column_layout(dim, p.group, item)
+        assert N % 8 == 0 and N % P == 0 and dim <= N < dim + 8
+        assert (P * (N // P) + 2 * N) * item <= smem <= 2048
+        assert p.smem == (per_block * smem,)
         assert p.launches == 1
     else:
         assert p.launches == 2 * -(-dim // 32) - 1

@@ -5,13 +5,22 @@ one NVIDIA card.
     python3 tools/ldlt_kernel_study.py [--parent DIR] [--only STUDY ...]
                                        [--out results.json]
 
-  * With --parent, the kernel of an earlier tree (DIR holds its checkout,
-    e.g. unpacked with `git archive <commit> | tar -x -C DIR`) is built from
-    DIR/uno_tpu_torch/csrc/ldlt.cu and timed beside the current kernels at
-    chip_smoke.py's sweep shapes, in turns (earlier, current, current,
-    earlier).  The earlier kernel is the single-kernel C interface
-    `uno_ldlt_factor_<f32|f64>(A, L, d, batch, dim, stream)`: L and d
-    only, the inertia not included.
+  * With --parent, the ldlt_column of an earlier tree (DIR holds its
+    checkout, e.g. unpacked with `git archive <commit> uno_tpu_torch | tar
+    -x -C DIR`, from a tree whose ldlt_column takes no group) is built from
+    DIR/uno_tpu_torch/csrc/ldlt.cu and launched through its C entry
+    `uno_ldlt_column_<f32|f64>(A, L, d, pos, neg, zero, batch, dim, rtol,
+    block, smem, grid, stream, launched)` with the launch sizes of the
+    earlier tree's own plan() (DIR/uno_tpu_torch/linalg/cuda_ldlt.py).  It
+    is timed beside the current ldlt_column and ldlt_panel forced on the
+    same inputs, in turns (earlier, current, panel, panel, current,
+    earlier), at chip_smoke.py's sweep shapes of dims 33-64, the n=32
+    path's shape, and single instances of dims 35, 50 and 64; the earlier
+    and current factors and inertia must be equal bit for bit.
+  * ldlt_column's groups: every threads-per-instance choice the dim has
+    (column_groups_for) timed at batches from 1 to 8,192 and dims 36, 44,
+    50 and 64, beside what plan() picks (where its switch batches come
+    from).
   * ldlt_panel's launches, each one's device time in the order of a call,
     at the sweep's shapes above dim 32 and at (1, 1280), from torch.profiler.
   * The flagship shape's ldlt_warp launch (65,536 x 12 x 12) split into its
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -59,7 +69,14 @@ FLAGSHIP = (chip_smoke.MAIN_BATCH, chip_smoke.MAIN_KKT_DIM)
 # the fixed-dim study: (batch, dim) in both dtypes, and hs015's shape in float64
 FIXED_DIMS = (4, 6, 8, 9, 12, 16)
 FIXED_SHAPES = [(chip_smoke.MAIN_BATCH, dim) for dim in FIXED_DIMS]
-STUDIES = ("panel_launches", "warp_parts", "warp_fixed_dim", "parent")
+STUDIES = ("panel_launches", "warp_parts", "warp_fixed_dim", "column_groups",
+           "parent")
+# ldlt_column's shapes beyond the sweep's: the n=32 path's, and single
+# instances (the .nl path's srosenbr_n50 at 50, the byrd fit at 35)
+COLUMN_SHAPES = [(chip_smoke.N32_BATCH, chip_smoke.N32_KKT_DIM), (1, 35), (1, 50),
+                 (1, 64)]
+GROUP_DIMS = (36, 44, 50, 64)
+GROUP_BATCHES = (1, 8, 32, 64, 128, 256, 512, 1024, 2048, 8192)
 
 
 def nvcc(source: Path, out: Path, defines=()) -> ctypes.CDLL:
@@ -98,11 +115,21 @@ def warp_call(fn, A, L, d, counts, name):
     return call
 
 
-def parent_fn(lib, dtype):
-    fn = getattr(lib, "uno_ldlt_factor_" + ("f32" if dtype == torch.float32 else "f64"))
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def earlier_column_fn(lib, dtype):
+    """ldlt_column's C entry point before the groups: block, smem, grid."""
+    fn = getattr(lib, "uno_ldlt_column_" + sfx(dtype))
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module           # its dataclasses look it up
+    spec.loader.exec_module(module)
+    return module
 
 
 def inputs(batch, dim, dtype, seed=0):
@@ -119,34 +146,81 @@ def emit(row, rows):
     rows.append(row)
 
 
+def column_shapes():
+    return [(chip_smoke.KERNEL_BATCH[dim], dim) for dim in chip_smoke.KERNEL_DIMS
+            if cuda_ldlt.plan(1, dim, torch.float32).route == "ldlt_column"] \
+        + COLUMN_SHAPES
+
+
 def compare_parent(parent: Path, tmp: Path, rows):
     lib = nvcc(parent / "uno_tpu_torch" / "csrc" / "ldlt.cu", tmp / "parent.so")
-    shapes = [(chip_smoke.KERNEL_BATCH[dim], dim) for dim in chip_smoke.KERNEL_DIMS]
-    shapes += [(1, dim) for dim in chip_smoke.LARGE_DIMS] + [(1, 6)]
+    earlier_plan = load_module(parent / "uno_tpu_torch" / "linalg" / "cuda_ldlt.py",
+                               "earlier_cuda_ldlt").plan
     for dtype in (torch.float32, torch.float64):
-        fn = parent_fn(lib, dtype)
-        for batch, dim in shapes:
+        fn = earlier_column_fn(lib, dtype)
+        for batch, dim in column_shapes():
             A, L, d, counts = inputs(batch, dim, dtype)
+            mine = (torch.empty_like(L), torch.empty_like(d),
+                    [torch.empty_like(c) for c in counts])
+            p = earlier_plan(batch, dim, dtype)
+            launched = ctypes.c_int(0)
 
             def earlier():
                 # the current stream: time_ms captures the call in a CUDA graph
-                err = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), batch, dim,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
+                err = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(),
+                         *(c.data_ptr() for c in counts), batch, dim, 1e-32,
+                         p.block[0], p.smem[0], p.grids[0],
+                         torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+                if err or launched.value != 1:
                     raise RuntimeError(f"earlier kernel: CUDA error {err}")
 
             def current():
-                cuda_ldlt.launch(A, L, d, *counts)
+                cuda_ldlt.launch(A, mine[0], mine[1], *mine[2])
 
-            earlier_ms, current_ms = [], []
+            def panel():
+                cuda_ldlt.launch(A, mine[0], mine[1], *mine[2], route="ldlt_panel")
+
+            times = {"earlier": [], "current": [], "panel": []}
             with cuda_ldlt.uncounted():
-                for fn_, out in ((earlier, earlier_ms), (current, current_ms),
-                                 (current, current_ms), (earlier, earlier_ms)):
-                    out.append(chip_smoke.time_ms(fn_))
-            emit({"study": "earlier_vs_current", "batch": batch, "dim": dim,
-                  "dtype": str(dtype).removeprefix("torch."),
-                  "route": cuda_ldlt.plan(batch, dim, dtype).route,
-                  "earlier_ms": earlier_ms, "current_ms": current_ms}, rows)
+                for name in ("earlier", "current", "panel", "panel", "current", "earlier"):
+                    times[name].append(chip_smoke.time_ms(
+                        {"earlier": earlier, "current": current, "panel": panel}[name]))
+                earlier()
+                current()
+            torch.cuda.synchronize()
+            same = torch.equal(L, mine[0]) and torch.equal(d, mine[1]) and all(
+                torch.equal(x, y) for x, y in zip(counts, mine[2]))
+            if not same:
+                raise RuntimeError(f"earlier and current ldlt_column differ at "
+                                   f"({batch}, {dim}) {dtype}")
+            bound, by = chip_smoke.bound_ms(batch, dim, A.element_size(),
+                                            str(dtype).removeprefix("torch."))
+            emit({"study": "ldlt_column_earlier_vs_current", "batch": batch,
+                  "dim": dim, "dtype": str(dtype).removeprefix("torch."),
+                  "earlier_group": p.group, "earlier_block": p.block[0],
+                  "group": cuda_ldlt.plan(batch, dim, dtype).group,
+                  "earlier_ms": times["earlier"], "current_ms": times["current"],
+                  "panel_ms": times["panel"], "bound_ms": bound, "bound_by": by,
+                  "bitwise_equal": same}, rows)
+
+
+def column_groups(rows):
+    """Every group of ldlt_column at GROUP_BATCHES x GROUP_DIMS, both
+    dtypes, each timed twice in turns (groups in order, then reversed)."""
+    for dtype in (torch.float32, torch.float64):
+        for dim in GROUP_DIMS:
+            for batch in GROUP_BATCHES:
+                A, L, d, counts = inputs(batch, dim, dtype, seed=dim)
+                times = {}
+                order = list(cuda_ldlt.column_groups_for(dim))
+                with cuda_ldlt.uncounted():
+                    for group in order + order[::-1]:
+                        times.setdefault(group, []).append(chip_smoke.time_ms(
+                            lambda: cuda_ldlt.launch(A, L, d, *counts, group=group)))
+                emit({"study": "ldlt_column_groups", "batch": batch, "dim": dim,
+                      "dtype": str(dtype).removeprefix("torch."),
+                      "planned": cuda_ldlt.plan(batch, dim, dtype).group,
+                      "ms": {str(g): v for g, v in times.items()}}, rows)
 
 
 def decompose(tmp: Path, rows):
@@ -287,6 +361,8 @@ def main(argv=None):
             decompose(Path(tmp), rows)
         if "warp_fixed_dim" in args.only:
             fixed_dim(Path(tmp), rows)
+        if "column_groups" in args.only:
+            column_groups(rows)
         if "parent" in args.only and args.parent:
             compare_parent(args.parent, Path(tmp), rows)
     if args.out:

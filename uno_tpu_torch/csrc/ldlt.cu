@@ -19,17 +19,9 @@
 //               a time where the row length allows.  One kernel per
 //               bucket serves every dim in it: lanes past the dim update
 //               zeros rather than branch.
-//   ldlt_column 32 < dim <= 64.  One warp per instance, its matrix in
-//               shared memory (rows of odd stride: the lanes of a warp,
-//               each at its own row, hit distinct banks).  Lane q owns row
-//               q and, where it is 32 or more, row dim - 1 - q, which
-//               evens out the rows' lengths.  Column by column, as the
-//               column form ldlt_factor does it: each lane divides its
-//               rows' entries of the column by the pivot, then updates its
-//               rows right of the column; one __syncwarp between the two,
-//               one after, no block barrier.  The column form is what
-//               uno_tpu factors at these dims, and a blocked form sums in
-//               another order.
+//   ldlt_column 32 < dim <= 64, in csrc/ldlt_column.cu: the column form's
+//               operations in its order, the lower triangle in registers
+//               spread over a group of threads per instance.
 //   ldlt_panel  dim > 64, any batch (B = 1 too).  Right-looking blocked
 //               LDL^T, panel width 32, two launches per panel step from one
 //               C loop: (a) a panel kernel over instances x chunks of rows
@@ -70,92 +62,24 @@
 // triangle each lane holds) take longer than its bytes (PERF.md;
 // tools/ldlt_kernel_study.py builds this file with the UNO_LDLT_STUDY_*
 // switches below to time those parts, and instantiates fixed-dim kernels).
-// ldlt_column reads the lower triangle and writes L once, and keeps the
-// O(dim^3) updates in shared memory; its time is the column chain of one
-// warp (a pivot, a division and a sweep of shared memory per column).
 // ldlt_panel reads and writes the trailing block once per panel step (not
 // once per column) and spreads each step over every SM whatever the batch;
 // its per-step cost is the 32-column factorization of the diagonal block
 // on one warp, a serial chain.
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ldlt_common.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARP_THREADS = 256;   // ldlt_warp's largest block
-constexpr int COLUMN_WARPS = 4;     // ldlt_column's largest block, in warps (instances)
-constexpr int COLUMN_STEP = 8;      // ldlt_column's columns per sweep of the trailing rows
 constexpr int PB = 32;              // ldlt_panel's panel width
 // trailing-update tiles: 64 x 64, or 32 x 32 when the trailing block is no
 // larger (dims 33 to 64); a thread computes 4 x 4 of a tile
 __host__ __device__ constexpr int trail_threads(int tile) { return (tile / 4) * (tile / 4); }
 constexpr int DEFAULT_SMEM = 48 * 1024;
-
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
-
-__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
-__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
-
-// a / b correctly rounded, given y = rcp_rn(b): Markstein's correction
-// q0 = a y, r = a - b q0 (exact with a fused multiply-add), q = q0 + r y
-// gives the correctly rounded quotient when nothing over- or underflows; the
-// other cases take the division itself.
-template <typename T> struct FastRange;  // |a| and |a/b| inside (1/big, big)
-template <> struct FastRange<float> { static constexpr float big = 0x1p100f, small = 0x1p-100f; };
-template <> struct FastRange<double> { static constexpr double big = 0x1p900, small = 0x1p-900; };
-
-template <typename T>
-__device__ __forceinline__ T div_by(T a, T b, T y) {
-  const T q0 = mul_rn(a, y);
-  const T aq = fabs(q0), aa = fabs(a);
-  if (aq < FastRange<T>::big && aq > FastRange<T>::small &&
-      aa < FastRange<T>::big && aa > FastRange<T>::small)
-    return fma_rn(fma_rn(-q0, b, a), y, q0);
-  if (a == T(0)) return q0;           // a zero of the quotient's sign
-  return div_rn(a, b);
-}
-
-template <typename T>
-__device__ __forceinline__ T safe_pivot(T dj) {
-  const T tiny = T(1e-35);
-  return (dj < tiny && dj > -tiny) ? (dj < T(0) ? -tiny : tiny) : dj;
-}
-
-// max that returns NaN if either argument is NaN, as torch.amax/maximum do
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  return (a != a || a > b) ? a : b;
-}
-
-// 16-byte vector loads and stores of 16 / sizeof(T) elements
-__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
-  const double2 t = *reinterpret_cast<const double2*>(p);
-  v[0] = t.x; v[1] = t.y;
-}
-__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store16(double* p, const double (&v)[2]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
-
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
 
 // Factor the matrix of an instance of `dim` <= G rows held by a group of G
 // lanes, lane i holding row i (only its lower part, r[k] for k <= i, is
@@ -210,15 +134,6 @@ __device__ __forceinline__ T factor_rows(T (&r)[G], int i, int dim, T* cb) {
     }
   }
   return di;
-}
-
-template <typename T>
-__device__ __forceinline__ void classify(T di, bool live, T thresh, bool& p,
-                                         bool& n, bool& z) {
-  const bool small = fabs(di) <= thresh;
-  z = live && small;
-  p = live && !small && di > T(0);
-  n = live && !small && di < T(0);
 }
 
 // Copy `elems` contiguous elements between global and shared memory, 16
@@ -360,136 +275,6 @@ ldlt_warp_kernel(const T* __restrict__ A, T* __restrict__ L, T* __restrict__ d,
 #ifndef UNO_LDLT_STUDY_NO_GLOBAL_MEMORY
   copy_out(sm, L + inst0 * nn, elems);
 #endif
-}
-
-// ---------------------------------------------------------------------------
-// ldlt_column: 32 < dim <= 64, one warp per instance, blockDim.x / 32 per block
-// ---------------------------------------------------------------------------
-
-// Shared memory holds each warp's matrix with rows of stride dim | 1 (odd).
-// Lane q owns row q, and row dim - 1 - q where that is 32 or more: together
-// they cover every row once.  Column j: every lane reads the pivot (a
-// broadcast), divides its rows' column entries below the pivot, and after a
-// __syncwarp subtracts d_j * (l_i * l_k) from its rows' entries k in
-// (j, i], reading l_k from column j (a broadcast); the entries right of a
-// step of COLUMN_STEP columns are loaded and stored once per step.
-template <typename T>
-__global__ void __launch_bounds__(32 * COLUMN_WARPS)
-ldlt_column_kernel(const T* __restrict__ A, T* __restrict__ L, T* __restrict__ d,
-                   long long* __restrict__ pos, long long* __restrict__ neg,
-                   long long* __restrict__ zero, int batch, int dim, T rtol) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int S = dim | 1;
-  const int w = threadIdx.x >> 5, q = threadIdx.x & 31;
-  const long long inst = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + w;
-  if (inst >= batch) return;               // the warp's instance; no block barrier follows
-  T* M = reinterpret_cast<T*>(smem_raw) + w * dim * S;
-  const long long nn = static_cast<long long>(dim) * dim;
-  const T* a = A + inst * nn;
-
-  // the lower triangle, a row at a time, copied asynchronously: every load
-  // of the lane is in flight at once (a load then a store per element
-  // would wait out the memory latency dim times)
-#pragma unroll 4
-  for (int i = 0; i < dim; ++i)
-    for (int k = q; k <= i; k += 32)
-      __pipeline_memcpy_async(M + i * S + k, a + static_cast<long long>(i) * dim + k, sizeof(T));
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncwarp();
-
-  const int rb = q;                        // < 32 < dim
-  const int ra = dim - 1 - q;              // owned where >= 32
-  const bool has_a = ra >= 32;
-  // COLUMN_STEP columns at a time.  Within the step, column by column: the
-  // pivot, the lanes' divisions, then the updates of the step's later
-  // columns.  Then the columns right of the step, each entry loaded once
-  // and updated by the step's columns in increasing order: the column
-  // form's operations on every entry, in its order.
-  for (int j0 = 0; j0 < dim; j0 += COLUMN_STEP) {
-    const int w = min(COLUMN_STEP, dim - j0);
-    T dp[COLUMN_STEP], la[COLUMN_STEP], lb[COLUMN_STEP];
-#pragma unroll
-    for (int jj = 0; jj < COLUMN_STEP; ++jj) {
-      dp[jj] = la[jj] = lb[jj] = T(0);
-      if (jj < w) {
-        const int j = j0 + jj;
-        const T dj = M[j * S + j];
-        const T s = safe_pivot(dj);
-        const T y = rcp_rn(s);
-        dp[jj] = dj;
-        if (has_a && ra > j) {
-          la[jj] = div_by(M[ra * S + j], s, y);
-          M[ra * S + j] = la[jj];
-        }
-        if (rb > j) {
-          lb[jj] = div_by(M[rb * S + j], s, y);
-          M[rb * S + j] = lb[jj];
-        }
-        __syncwarp();
-#pragma unroll
-        for (int kk = jj + 1; kk < COLUMN_STEP; ++kk) {
-          const int k = j0 + kk;
-          if (kk < w) {
-            const T lk = M[k * S + j];
-            if (has_a && k <= ra) M[ra * S + k] = sub_rn(M[ra * S + k], mul_rn(dj, mul_rn(la[jj], lk)));
-            if (k <= rb) M[rb * S + k] = sub_rn(M[rb * S + k], mul_rn(dj, mul_rn(lb[jj], lk)));
-          }
-        }
-        __syncwarp();
-      }
-    }
-#pragma unroll 2
-    for (int k = j0 + w; k < dim; ++k) {
-      T lk[COLUMN_STEP];
-#pragma unroll
-      for (int jj = 0; jj < COLUMN_STEP; ++jj) lk[jj] = jj < w ? M[k * S + j0 + jj] : T(0);
-      if (has_a && k <= ra) {
-        T v = M[ra * S + k];
-#pragma unroll
-        for (int jj = 0; jj < COLUMN_STEP; ++jj)
-          if (jj < w) v = sub_rn(v, mul_rn(dp[jj], mul_rn(la[jj], lk[jj])));
-        M[ra * S + k] = v;
-      }
-      if (k <= rb) {
-        T v = M[rb * S + k];
-#pragma unroll
-        for (int jj = 0; jj < COLUMN_STEP; ++jj)
-          if (jj < w) v = sub_rn(v, mul_rn(dp[jj], mul_rn(lb[jj], lk[jj])));
-        M[rb * S + k] = v;
-      }
-    }
-    __syncwarp();
-  }
-
-  // L (unit lower, zeros above) and d; the rows were not written above the diagonal
-  T* l = L + inst * nn;
-#pragma unroll 4
-  for (int i = 0; i < dim; ++i)
-    for (int k = q; k < dim; k += 32)
-      l[static_cast<long long>(i) * dim + k] = k < i ? M[i * S + k] : T(k == i);
-  const T db = M[rb * S + rb];
-  const T da = has_a ? M[ra * S + ra] : T(0);
-  T* dv = d + inst * dim;
-  dv[rb] = db;
-  if (has_a) dv[ra] = da;
-
-  // inertia: the warp's max |d| (NaN propagates), then counts by reduction
-  T m = nan_max(fabs(db), fabs(da));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_xor_sync(FULL, m, o));
-  const T thresh = mul_rn(rtol, nan_max(m, T(1)));
-  bool pb_, nb_, zb_, pa_, na_, za_;
-  classify(db, true, thresh, pb_, nb_, zb_);
-  classify(da, has_a, thresh, pa_, na_, za_);
-  const unsigned np = __reduce_add_sync(FULL, unsigned(pb_) + unsigned(pa_));
-  const unsigned nneg = __reduce_add_sync(FULL, unsigned(nb_) + unsigned(na_));
-  const unsigned nz = __reduce_add_sync(FULL, unsigned(zb_) + unsigned(za_));
-  if (q == 0) {
-    pos[inst] = np;
-    neg[inst] = nneg;
-    zero[inst] = nz;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -887,26 +672,6 @@ int launch_warp(const void* A, void* L, void* d, void* pos, void* neg,
   return launch_warp_g<T, 32, 0>(a, l, dv, p, n, z, batch, dim, r, block, smem, grid, s, launched);
 }
 
-template <typename T>
-int launch_column(const void* A, void* L, void* d, void* pos, void* neg,
-                  void* zero, int batch, int dim, double rtol, int block,
-                  int smem, int grid, void* stream, int* launched) {
-  *launched = 0;
-  const int warps = block / 32;
-  const long long need = static_cast<long long>(warps) * dim * (dim | 1) * sizeof(T);
-  if (batch <= 0 || dim <= 32 || dim > 64 || block % 32 != 0 || warps < 1 ||
-      warps > COLUMN_WARPS || smem < need || smem > DEFAULT_SMEM ||
-      grid != (batch + warps - 1) / warps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  ldlt_column_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<T*>(L), static_cast<T*>(d),
-      static_cast<long long*>(pos), static_cast<long long*>(neg),
-      static_cast<long long*>(zero), batch, dim, static_cast<T>(rtol));
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++*launched;
-  return static_cast<int>(err);
-}
-
 template <typename T, int ROWS, int TILE>
 int run_panel(const T* A, T* L, T* d, long long* pos, long long* neg,
               long long* zero, int batch, int dim, T rtol, int panel_smem,
@@ -995,22 +760,6 @@ extern "C" int uno_ldlt_warp_f64(const void* A, void* L, void* d, void* pos,
                                  int grid, void* stream, int* launched) {
   return launch_warp<double>(A, L, d, pos, neg, zero, batch, dim, rtol, group,
                              block, smem, grid, stream, launched);
-}
-
-extern "C" int uno_ldlt_column_f32(const void* A, void* L, void* d, void* pos,
-                                   void* neg, void* zero, int batch, int dim,
-                                   double rtol, int block, int smem, int grid,
-                                   void* stream, int* launched) {
-  return launch_column<float>(A, L, d, pos, neg, zero, batch, dim, rtol, block,
-                              smem, grid, stream, launched);
-}
-
-extern "C" int uno_ldlt_column_f64(const void* A, void* L, void* d, void* pos,
-                                   void* neg, void* zero, int batch, int dim,
-                                   double rtol, int block, int smem, int grid,
-                                   void* stream, int* launched) {
-  return launch_column<double>(A, L, d, pos, neg, zero, batch, dim, rtol, block,
-                               smem, grid, stream, launched);
 }
 
 extern "C" int uno_ldlt_panel_f32(const void* A, void* L, void* d, void* pos,

@@ -1,25 +1,35 @@
-"""The batched LDL^T kernels (csrc/ldlt.cu) and their wrapper.
+"""The batched LDL^T kernels (csrc/ldlt.cu, csrc/ldlt_column.cu) and their
+wrapper.
 
 Counterpart of uno_tpu/linalg/pallas_ldlt.py: three CUDA kernels replace
 both Pallas functions there (`ldlt_factor_pallas`,
 `ldlt_factor_pallas_batched`), routed by dim, the single instance being the
 batch of one:
   * `ldlt_warp`   dim <= 32: a group of 8, 16 or 32 lanes per instance;
-  * `ldlt_column` 32 < dim <= 64: a warp per instance, the column form's
-                  operations in the column form's order;
+  * `ldlt_column` 32 < dim <= 64: the column form's operations in the
+                  column form's order, the lower triangle in the registers of
+                  a group of 16, 32 or 64 threads per instance
+                  (`column_group`), spread so that every column's updates
+                  are even over them; the dim's bucket of 8 sets the kernel;
   * `ldlt_panel`  dim > 64: panels of 32 columns, a panel kernel and a
                   trailing-update kernel per panel step.
 All take float32 and float64 and count the inertia themselves.  Each gives
 the plain version's factors bit for bit (`linalg.ldlt.plain_factorizer`:
 the unrolled form up to 32, the column form up to 64, panels above).
+ldlt_column is bound by its instructions where the batch fills the card
+(three operations an update, and per column two barriers, a reciprocal and
+a division or two a thread) and by its chain of columns where it does not;
+its registers, not shared memory, set how many instances an SM runs.
 
 The kernels are compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes.  They build on first use into
-uno_tpu_torch/_build/, keyed by a hash of the csrc/ sources.
+uno_tpu_torch/_build/, keyed by a hash of the csrc/ sources, one nvcc per
+source, all at once.
 
 `plan(batch, dim, dtype)` is the route and the launch sizes of a call
-(`route="ldlt_panel"` forces the panels at dims 33-64, for timing); the C
-side refuses a plan it would not make.  `ldlt_factor_cuda(A)` launches
+(`route="ldlt_panel"` forces the panels at dims 33-64, for timing, and
+`group` ldlt_column's threads per instance); the C side refuses a plan it
+would not launch.  `ldlt_factor_cuda(A)` launches
 the kernels for a CUDA tensor; for a CPU tensor it runs the plain version
 uno_tpu's batch path uses at that dim (`linalg.ldlt.plain_factorizer`),
 the one place where that choice is made.  `launch(A, L, d, pos, neg, zero)`
@@ -44,13 +54,26 @@ from uno_tpu_torch.linalg.ldlt import LDLT, plain_factorizer
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]     # one source straight to a library
 MAX_DIM = 46340          # dim * dim must fit the kernels' int indices
 ROUTES = ("ldlt_warp", "ldlt_column", "ldlt_panel")
 WARP_MAX_DIM = 32        # ldlt_warp up to this dim
 COLUMN_MAX_DIM = 64      # ldlt_column up to this dim, ldlt_panel above
-COLUMN_WARPS = 4         # ldlt_column's largest block, in warps (instances)
+# ldlt_column's groups: threads per instance -> the P x Q threads its rows
+# and columns lie over (csrc/ldlt_column.cu's ColumnLayout); a group of 16
+# shares a warp, and a block, with a second instance, and takes dims up to
+# COLUMN_GROUP16_MAX_DIM
+COLUMN_GROUPS = {16: (4, 4), 32: (8, 4), 64: (8, 8)}
+COLUMN_GROUP16_MAX_DIM = 40
+# the batches from which a smaller group beats two warps an instance
+# (tools/ldlt_kernel_study.py --only column_groups; PERF.md): 16 threads
+# at dims up to 40, from these batches in float32 and float64; 32 threads
+# in float64 above dim 56
+COLUMN_GROUP16_BATCH = {4: 4096, 8: 2048}
+COLUMN_GROUP32_BATCH = 1024
+COLUMN_SWITCH_BATCHES = tuple(sorted({*COLUMN_GROUP16_BATCH.values(), COLUMN_GROUP32_BATCH}))
 PANEL = 32               # ldlt_panel's panel width (PB in ldlt.cu)
 TILE = 64                # its trailing-update tile (32 up to dim 64)
 WARP_THREADS = 256       # ldlt_warp's largest block
@@ -89,7 +112,7 @@ def uncounted():
 class Plan:
     """The launches of one call: `block`, `smem` (dynamic shared memory
     bytes) per kernel of the route, and `grids`, the blocks of every launch
-    in order.  `group` is the lanes per instance of ldlt_warp and
+    in order.  `group` is the threads per instance of ldlt_warp and
     ldlt_column; `rows` is ldlt_panel's rows per chunk."""
     route: str
     group: int
@@ -107,11 +130,42 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(batch: int, dim: int, dtype: torch.dtype, route: str | None = None) -> Plan:
+def column_group(batch: int, dim: int, item: int) -> int:
+    """ldlt_column's threads per instance for a batch of (dim, dim)
+    matrices of `item`-byte elements: two warps, or fewer threads where
+    the batch fills the card and they take less time."""
+    if dim <= COLUMN_GROUP16_MAX_DIM and batch >= COLUMN_GROUP16_BATCH[item]:
+        return 16
+    if dim > 56 and item == 8 and batch >= COLUMN_GROUP32_BATCH:
+        return 32
+    return 64
+
+
+def column_groups_for(dim: int) -> tuple:
+    """The groups ldlt_column has a kernel for at this dim."""
+    return tuple(g for g in COLUMN_GROUPS if g != 16 or dim <= COLUMN_GROUP16_MAX_DIM)
+
+
+def column_layout(dim: int, group: int, item: int) -> tuple[int, int]:
+    """ldlt_column's bucket N for this dim (a multiple of 8) and an
+    instance's shared memory in bytes, as ColumnLayout computes them: the
+    group's P runs of the multipliers (whole 16-byte vectors, an odd number
+    of them), the column and the pivots."""
+    P, _ = COLUMN_GROUPS[group]
+    N = _ceil(dim, 8) * 8
+    vec = 16 // item
+    rv = _ceil(N // P, vec)
+    run = (rv if rv % 2 else rv + 1) * vec
+    return N, (P * run + 2 * _ceil(N, vec) * vec) * item
+
+
+def plan(batch: int, dim: int, dtype: torch.dtype, route: str | None = None,
+         group: int | None = None) -> Plan:
     """The route and launch sizes of a call on (batch, dim, dim) of dtype;
-    csrc/ldlt.cu computes the same numbers and refuses others.  `route`
-    None is the dim's own; "ldlt_panel" may also be asked for at dims
-    33-64, where it sums in another order than the column form."""
+    csrc/ computes the same numbers and refuses others.  `route` None is
+    the dim's own; "ldlt_panel" may also be asked for at dims 33-64, where
+    it sums in another order than the column form.  `group` forces
+    ldlt_column's threads per instance (one of column_groups_for(dim))."""
     if batch < 1 or not 1 <= dim <= MAX_DIM:
         raise ValueError(f"batch {batch}, dim {dim}: expected batch >= 1 and "
                          f"1 <= dim <= {MAX_DIM}")
@@ -120,12 +174,19 @@ def plan(batch: int, dim: int, dtype: torch.dtype, route: str | None = None) -> 
     route = own if route is None else route
     if route != own and not (route == "ldlt_panel" and own == "ldlt_column"):
         raise ValueError(f"route {route!r} does not take dim {dim}")
+    if group is not None and (route != "ldlt_column" or group not in column_groups_for(dim)):
+        raise ValueError(f"group {group}: ldlt_column takes one of "
+                         f"{tuple(COLUMN_GROUPS)} threads per instance, 16 up "
+                         f"to dim {COLUMN_GROUP16_MAX_DIM}")
     item = torch.empty((), dtype=dtype).element_size()
     if route == "ldlt_column":
-        per_instance = dim * (dim | 1) * item    # rows of odd stride
-        warps = min(COLUMN_WARPS, SMEM_DEFAULT // per_instance, batch)
-        return Plan("ldlt_column", 32, 0, (32 * warps,), (warps * per_instance,),
-                    (_ceil(batch, warps),))
+        if batch > MAX_GRID:
+            raise ValueError(f"batch {batch}: above {MAX_GRID} blocks in a launch")
+        group = column_group(batch, dim, item) if group is None else group
+        _, smem = column_layout(dim, group, item)
+        per_block = max(1, 32 // group)
+        return Plan("ldlt_column", group, 0, (group * per_block,), (smem * per_block,),
+                    (_ceil(batch, per_block),))
     if route == "ldlt_warp":
         group = 8 if dim <= 8 else (16 if dim <= 16 else 32)
         per_warp = 32 // group
@@ -183,26 +244,47 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
 
 
+def _run(cmds: list[list[str]], timeout: float) -> str:
+    """Run the commands at once; returns their output, or raises with the
+    first failure's stderr (the others are stopped)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    try:
+        outs = [proc.communicate(timeout=timeout) for proc in procs]
+    except subprocess.TimeoutExpired as exc:
+        raise RuntimeError(f"nvcc timed out after {timeout} s") from exc
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (_, err) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def build(timeout: float = 300.0) -> Path:
-    """Compile csrc/ into _build/libuno_ldlt-<hash>.so unless it is there;
-    returns its path.  Raises with nvcc's stderr if nvcc fails or times out."""
+    """Compile csrc/ into _build/libuno_ldlt-<hash>.so unless it is there,
+    one nvcc per .cu file, all at once, then link; returns its path.
+    Raises with nvcc's stderr if nvcc fails or times out."""
     global build_log
     lib_path = BUILD_DIR / f"libuno_ldlt-{source_hash()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    stem = f"{lib_path.stem}.{os.getpid()}"
+    units = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in units]
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
     try:
-        out = subprocess.run(cmd, timeout=timeout, check=True,
-                             capture_output=True, text=True)
-    except subprocess.CalledProcessError as exc:
-        raise RuntimeError(f"nvcc failed (exit {exc.returncode}):\n"
-                           f"{exc.stderr}") from exc
-    except subprocess.TimeoutExpired as exc:
-        raise RuntimeError(f"nvcc timed out after {timeout} s:\n"
-                           f"{exc.stderr}") from exc
-    build_log = out.stdout + out.stderr
+        log = _run([[_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(units, objects)], timeout)
+        log += _run([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)]], timeout)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    build_log = log
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -213,11 +295,9 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         ptrs = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_double]
         tail = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]   # stream, launched
-        for fn in (lib.uno_ldlt_warp_f32, lib.uno_ldlt_warp_f64):
+        for fn in (lib.uno_ldlt_warp_f32, lib.uno_ldlt_warp_f64,
+                   lib.uno_ldlt_column_f32, lib.uno_ldlt_column_f64):
             fn.argtypes = ptrs + [ctypes.c_int] * 4 + tail
-            fn.restype = ctypes.c_int
-        for fn in (lib.uno_ldlt_column_f32, lib.uno_ldlt_column_f64):
-            fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
         for fn in (lib.uno_ldlt_panel_f32, lib.uno_ldlt_panel_f64):
             fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
@@ -243,12 +323,13 @@ def _check(A: torch.Tensor) -> None:
 
 def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
            pos: torch.Tensor, neg: torch.Tensor, zero: torch.Tensor,
-           zero_pivot_rtol: float = 1e-32, route: str | None = None) -> Plan:
+           zero_pivot_rtol: float = 1e-32, route: str | None = None,
+           group: int | None = None) -> Plan:
     """Launch the route's kernels on the current stream: the factors of A
     (B, dim, dim) on the card into L (B, dim, dim) and d (B, dim) of its
     dtype and device, the inertia into pos, neg and zero (B,) int64.
     Counts the call and the kernels it launched under its route; raises if
-    a launch failed.  Returns the plan.  `route` as in plan()."""
+    a launch failed.  Returns the plan.  `route` and `group` as in plan()."""
     _check(A)
     if A.device.type != "cuda":
         raise ValueError(f"the kernels run on the card; A is on {A.device}")
@@ -263,7 +344,7 @@ def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
                              f"tensor on {A.device}")
     if batch == 0:
         return None
-    p = plan(batch, dim, A.dtype, route)
+    p = plan(batch, dim, A.dtype, route, group)
     lib = _load()
     suffix = "f32" if A.dtype == torch.float32 else "f64"
     ptrs = (A.data_ptr(), L.data_ptr(), d.data_ptr(), pos.data_ptr(),
@@ -271,13 +352,9 @@ def launch(A: torch.Tensor, L: torch.Tensor, d: torch.Tensor,
     launched = ctypes.c_int(0)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        if p.route == "ldlt_warp":
-            err = getattr(lib, f"uno_ldlt_warp_{suffix}")(
+        if p.route in ("ldlt_warp", "ldlt_column"):
+            err = getattr(lib, f"uno_{p.route}_{suffix}")(
                 *ptrs, p.group, p.block[0], p.smem[0], p.grids[0], stream,
-                ctypes.byref(launched))
-        elif p.route == "ldlt_column":
-            err = getattr(lib, f"uno_ldlt_column_{suffix}")(
-                *ptrs, p.block[0], p.smem[0], p.grids[0], stream,
                 ctypes.byref(launched))
         else:
             err = getattr(lib, f"uno_ldlt_panel_{suffix}")(
