@@ -21,7 +21,7 @@ overruns raises, and the script exits non-zero):
                   of each of its buckets (B=1 and a ragged batch) and at the
                   batches where plan() changes its threads per instance;
                   ldlt_column against the column form, bit for bit, at every
-                  dim 33-64 and those batches; then the kernels against the
+                  dim 33-64 at B=1, 777 and 4,096; then the kernels against the
                   column form, bit for bit, at the dims of the SQP's
                   multiplier fits
   4. kernels_large  the same for single instances of dim 640 and 1280
@@ -59,8 +59,8 @@ overruns raises, and the script exits non-zero):
  17. lifted       the flagship batch (B=8,192) through the lifted Cholesky
                   in float64, 64 instances again on the CPU; hs015 lifted
  18. sparse       steering at N=400 stages under the supernodal LDL^T
-                  against the CPU, uno_tpu's result and route report, and
-                  the card's augmented run; chwood_eq_n1000 under
+                  against uno_tpu's result and route report, and the
+                  card's augmented run; chwood_eq_n1000 under
                   auto_permute (detected band, banded backend)
  19. ipm_mixes    the IPM's ingredient mixes on the flagship family with the
                   main path's options: the funnel at B=65,536, the Fletcher
@@ -74,7 +74,21 @@ overruns raises, and the script exits non-zero):
                   presets with sqp_driver="host", filtersqp with a line
                   search and byrd with a trust region, on the card and on
                   the CPU, held to uno_tpu's CPU results
- 21. summary      the {"kernels": [...]} line (each kernel's launches and
+ 21. sharded      the main path's batch through solve_batch_sharded on a
+                  one-process NCCL group, equal to main_path's solve_batch
+                  result bit for bit in status, iterations and x
+ 22. dist_kkt     single_large's instance with ldlt_backend="distributed"
+                  on that group (20 panels of 64 on dist_panel), held to
+                  single_large's standard and timed beside it; dist_panel
+                  against panel_factor_plain bit for bit at (1280, 64) and
+                  (8192, 64), float32 and float64, timed with its bound
+ 23. schur        the Schur-complement factor and solve of a block-arrow
+                  system (S=2,048 blocks of 64, n0=256, float64: the blocks
+                  on ldlt_column, S_0 on ldlt_panel) against the CPU, with
+                  its residual and times
+ 24. structured   the two-stage scenario IPM at S=4,096 (blocks on
+                  ldlt_warp) against the CPU and uno_tpu's recorded result
+ 25. summary      the {"kernels": [...]} line (each kernel's launches and
                   wrapper calls on its path, as cuda_ldlt counted them),
                   then the last line {"ok": true, "device": {...}}
 With --profile, the flagship batches of the main path and the filtersqp
@@ -89,7 +103,9 @@ outside Pallas; their paths still run the LDL^T kernels for the initial
 multipliers and catena's retry.
 
 Imports torch, numpy and uno_tpu_torch only.  Starts no child process
-other than nvidia-smi, nvcc and g++, and no thread.
+other than nvidia-smi, nvcc and g++, and no thread of its own (the
+one-process NCCL group of phases 21-22 runs NCCL's, and is destroyed
+before the last lines).
 """
 
 from __future__ import annotations
@@ -115,6 +131,7 @@ BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 300,
            "byrd_batch": 360, "byrd_single": 180, "nl": 300,
            "structured_kernels": 300, "banded": 600, "lifted": 300,
            "sparse": 600, "ipm_mixes": 300, "sqp_host": 300,
+           "sharded": 240, "dist_kkt": 300, "schur": 300, "structured": 300,
            "profile": 600, "profile_byrd": 450,
            "profile_structured": 300}
 # the route edges 31/32/33 and 64/65, and 34 and 66, where float64 rows
@@ -134,11 +151,14 @@ PLAIN_GRAPH_MAX_DIM = 4096
 # last dim of every bucket, timed at B=1 and at a ragged batch beside
 # ldlt_panel; the dims of the n=32 path and of the largest bucket timed on
 # both sides of each batch where plan() changes their threads per
-# instance; and every dim 33-64 at all those batches, untimed, against the
-# column form bit for bit
+# instance; and every dim 33-64, untimed, against the column form bit for
+# bit at B=1 and the ragged batch (64 threads an instance) and at the
+# largest switch batch, where every dim takes its smallest group (16
+# threads up to dim 40, 32 in float64 above 56): every kernel of the route
 COLUMN_EDGE_DIMS = (33, 40, 41, 48, 49, 56, 57, 63, 64)
 COLUMN_SWITCH_DIMS = (36, 64)
 COLUMN_RAGGED_BATCH = 777
+COLUMN_EXACT_BATCHES = (1, COLUMN_RAGGED_BATCH, 4096)
 # the dims of the QP multiplier fits' normal equations (m + 2n of each QP)
 # on the SQP paths: hs015's, hs071's and the flagship's optimality and
 # restoration QPs (byrd's relaxed QPs have the restoration QPs' widths:
@@ -348,6 +368,37 @@ SQP_HOST_REF = {
 # status and to the objective within SQP_HOST_SENSITIVE_F_RTOL
 SQP_HOST_SENSITIVE = {("filterslp", "hs071", "host")}
 SQP_HOST_SENSITIVE_F_RTOL = 1e-6
+# slice 4, multi-card on torch.distributed, each path on a one-process
+# group (NCCL on the card, parallel/group.make_group).  sharded: the main
+# path's batch through solve_batch_sharded, equal to main_path's
+# solve_batch bit for bit in status, iterations and x.  dist_kkt: the
+# dim-1280 instance of single_large with ldlt_backend="distributed" (its
+# 20 panels of dist_ldlt_block = 64 on dist_panel), held to single_large's
+# standard; dist_panel against panel_factor_plain bit for bit on a
+# (rows, rows) rank storage at these heights, float32 and float64, its
+# first panel (row0 0, the most work) timed and a middle one checked
+DIST_PANEL_ROWS = (1280, 8192)
+DIST_BLOCK = 64
+# schur: random_block_arrow_system(S, nb, n0) in float64 (K_s 67 MB, B_s and
+# Y 268 MB each), the blocks on ldlt_column (2048, 64), S_0 on ldlt_panel
+# (1, 256); card against the same code on the CPU: equal inertia, x within
+# SCHUR_X_ATOL; |K x - r| / |r| within SCHUR_RESIDUAL on the card
+SCHUR_S, SCHUR_NB, SCHUR_N0 = 2048, 64, 256
+SCHUR_SEED = 21
+SCHUR_X_ATOL = 1e-10
+SCHUR_RESIDUAL = 1e-10
+# structured: the two-stage family of tests/test_structured.py (seed 0) at
+# STRUCTURED_S scenarios, the scenario blocks (S, 4, 4) on ldlt_warp; card
+# against the port on the CPU (status and iterations equal, x0 and xs
+# within STRUCTURED_X_ATOL) and against uno_tpu's CPU result, made by
+# `JAX_PLATFORMS=cpu python3 tools/structured_reference.py 4096`: status,
+# iterations, objective, x0, and the sum and sum of squares of xs
+STRUCTURED_S = 4096
+STRUCTURED_X_ATOL = 1e-8
+STRUCTURED_REF = {"status": "optimal", "iterations": 17,
+                  "objective": 1690.9452075648258,
+                  "x0": (2.0279941158736876, 1.0),
+                  "xs_sum": 6755.414269402402, "xs_sumsq": 5909.606268944565}
 
 
 class PhaseTimeout(Exception):
@@ -356,6 +407,10 @@ class PhaseTimeout(Exception):
 
 def _on_alarm(signum, frame):
     raise PhaseTimeout("phase budget exhausted")
+
+
+# seconds each phase took, in the order they ran (in --out's JSON)
+phase_seconds = {}
 
 
 def run_phase(name, fn, *args, **kwargs):
@@ -371,6 +426,7 @@ def run_phase(name, fn, *args, **kwargs):
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
     took = time.monotonic() - t0
+    phase_seconds[name] = took
     print(f"== {name} done in {took:.3f} s", flush=True)
     if took > budget:
         raise PhaseTimeout(f"phase {name} took {took:.1f} s > {budget} s")
@@ -752,7 +808,7 @@ def phase_kernels():
                                   != cuda_ldlt.plan(batch, dim, dtype).group):
                     rows += [check_kernel(b, dim, dtype_name, seed=dim)
                              for b in (batch - 1, batch)]
-        rows.append(check_column_exact(batches, range(33, 65), dtype_name))
+        rows.append(check_column_exact(COLUMN_EXACT_BATCHES, range(33, 65), dtype_name))
     rows += [check_fit_exact(SQP_BATCH, dim, seed=dim) for dim in FIT_DIMS]
     return rows
 
@@ -777,12 +833,13 @@ def main_path_options(max_iterations=MAIN_MAX_ITERATIONS):
 
 def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN, n=8,
                     kkt_dim=MAIN_KKT_DIM, route="ldlt_warp", min_solved=0.999,
-                    iteration_slack=ITERATION_SLACK, x_atol=X_ATOL):
+                    iteration_slack=ITERATION_SLACK, x_atol=X_ATOL, keep=None):
     """Solve the flagship batch (n variables) on `device` through
     solve_batch, then the first `rerun` instances on the CPU; raise unless
     the results are finite, at least `min_solved` of them solved, the
     kernel `route` launched, and the CPU run agrees (equal status,
-    iterations within `iteration_slack`, x within `x_atol`)."""
+    iterations within `iteration_slack`, x within `x_atol`).  `keep`, a
+    dict, receives the BatchResult under "result"."""
     import torch
     import uno_tpu_torch
     from uno_tpu_torch.linalg import cuda_ldlt
@@ -800,6 +857,8 @@ def phase_main_path(device="cuda", batch=MAIN_BATCH, rerun=CPU_RERUN, n=8,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    if keep is not None:
+        keep["result"] = res
     by_route = dict(cuda_ldlt.launches)
     launches = sum(by_route.values())
     out = {"batch": batch, "n": n, "kkt_dim": kkt_dim, "solved": res.num_solved,
@@ -1547,7 +1606,7 @@ def _held_to(tag, res, iterations, objective, f_rtol):
 def phase_banded(device="cuda", n=LUKVLE1_N, large_n=LUKVLE1_LARGE_N,
                  catena=CATENA_NAME):
     """lukvle1 at n under the ipopt preset's auto route, which takes the
-    banded backend, against the port's CPU run and uno_tpu's CPU result;
+    banded backend, against uno_tpu's CPU result;
     lukvle1 at large_n on the card alone (optimal; iterations, objective,
     wall and peak memory printed; with its initial multipliers' dense
     matrix of dim 2 large_n - 2 on ldlt_panel, timed beside its plain
@@ -1568,8 +1627,8 @@ def phase_banded(device="cuda", n=LUKVLE1_N, large_n=LUKVLE1_LARGE_N,
            "init_kkt_mib": 8 * (n + nlp.m) ** 2 / 2 ** 20, **counts}
     if counts["banded"]["factorizations"] <= 0:
         raise AssertionError(f"{nlp.name}: the banded backend did not run")
-    ref = uno_tpu_torch_solve_cpu(nlp)
-    row.update(_against_cpu(nlp.name, res, ref, 1e-10, 1e-8))
+    # held to uno_tpu's CPU result alone: no CPU rerun of the port here,
+    # for the script's time limit (PERF.md, the cuts)
     row["uno_tpu_objective_rel_gap"] = _held_to(
         nlp.name, res, LUKVLE1_ITERATIONS, LUKVLE1_OPTIMUM, 1e-9)
     print(json.dumps(row), flush=True)
@@ -1719,9 +1778,8 @@ def phase_lifted(device="cuda", batch=LIFTED_BATCH, rerun=LIFTED_RERUN,
 
 def phase_sparse(device="cuda", n=STEERING_N, ref=STEERING_REF,
                  chwood=CHWOOD_NAME):
-    """steering under kkt_formulation="sparse" against the port's CPU run,
-    uno_tpu's CPU result and route report `ref`, and the card's augmented
-    run; the auto_permute route report of the same instance; chwood_eq
+    """steering under kkt_formulation="sparse" against uno_tpu's CPU result
+    and route report `ref`, and the card's augmented run; the auto_permute route report of the same instance; chwood_eq
     under auto_permute, whose detection finds a band for the banded
     backend, against the CPU."""
     from uno_tpu_torch.linalg import sparse_kkt
@@ -1744,8 +1802,8 @@ def phase_sparse(device="cuda", n=STEERING_N, ref=STEERING_REF,
             or round(row["flop_ratio"], 3) != ref["flop_ratio"]:
         raise AssertionError(f"{nlp.name}: the sparse route differs from "
                              f"uno_tpu's {ref}: {row['report']}")
-    row.update(_against_cpu(nlp.name, res, uno_tpu_torch_solve_cpu(
-        nlp, kkt_formulation="sparse"), 1e-8))
+    # held to uno_tpu's CPU result alone: no CPU rerun of the port here,
+    # for the script's time limit (PERF.md, the cuts)
     row["uno_tpu_objective_rel_gap"] = _held_to(
         nlp.name, res, ref["iterations"], ref["objective"], 1e-9)
     aug, aug_wall, aug_counts = _solve_counted(nlp, device, kkt_formulation="augmented")
@@ -1999,8 +2057,351 @@ def phase_profile_structured(top=12, n=LUKVLE1_N):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 4: multi-card on torch.distributed, on a one-process NCCL group
+# ---------------------------------------------------------------------------
+
+def _reset_device_counts(device):
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    cuda_ldlt.reset_counts()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_sharded(main_result, device="cuda", batch=MAIN_BATCH):
+    """The main path's flagship batch through solve_batch_sharded on a
+    one-process group (NCCL on the card); raise unless its status,
+    iterations and x equal main_path's solve_batch result bit for bit and
+    ldlt_warp launched."""
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.parallel import make_group, solve_batch_sharded
+
+    group = make_group(device)
+    nlp, x0, params = flagship(batch)
+    _reset_device_counts(device)
+    t0 = time.monotonic()
+    res = solve_batch_sharded(nlp, main_path_options(), x0, params, group)
+    _sync(device)
+    wall = time.monotonic() - t0
+    out = {"batch": batch, "world": group.size, "backend": group.backend,
+           "solved": res.num_solved, "mean_iterations": float(np.mean(res.iterations)),
+           "max_iterations": int(np.max(res.iterations)), "wall_s": wall,
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "peak_gib": _peak_gib(device)}
+    out["equal_to_main_path"] = {k: bool(np.array_equal(getattr(res, k), getattr(main_result, k)))
+                                 for k in ("status", "iterations", "x")}
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
+        raise AssertionError("the sharded batch launched ldlt_warp 0 times")
+    if not all(out["equal_to_main_path"].values()):
+        raise AssertionError(f"the sharded batch differs from solve_batch: "
+                             f"{out['equal_to_main_path']}")
+    return out
+
+
+def dist_panel_rows0(rows):
+    """The panels check_dist_panel factors: the first (the most work) and
+    one in the middle of the storage."""
+    return sorted({0, (rows - DIST_BLOCK) // 2})
+
+
+def dist_panel_storage(rows, seed):
+    """A rank's (rows, rows) storage whose panels at dist_panel_rows0 are
+    KKT-like: small Gaussian entries, the diagonal block symmetric with
+    pivots of magnitude 10^U(0, 3), 30% of them negative."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((rows, rows)) * 0.1
+    for row0 in dist_panel_rows0(rows):
+        D = W[row0:row0 + DIST_BLOCK, row0:row0 + DIST_BLOCK]
+        D = (D + D.T) / 2
+        diag = 10.0 ** rng.uniform(0, 3, DIST_BLOCK)
+        D[np.arange(DIST_BLOCK), np.arange(DIST_BLOCK)] = np.where(
+            rng.uniform(size=DIST_BLOCK) < 0.3, -diag, diag)
+        W[row0:row0 + DIST_BLOCK, row0:row0 + DIST_BLOCK] = D
+    return W
+
+
+def dist_panel_bound(rows, row0, block, itemsize, dtype_name):
+    """The least time for a panel factor: the slab (rows x block) read and
+    written and the pivots written, over the memory rate, against the
+    operations these inputs need (per column a reciprocal, a multiplier for
+    every row below the pivot and three operations for each of its entries
+    right of the column), over the peak rate; the larger of the two."""
+    bytes_moved = (2 * rows * block + block) * itemsize
+    flops = sum((rows - row0 - jj - 1) * (1 + 3 * (block - jj - 1)) + 1
+                for jj in range(block))
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_dist_panel(rows, dtype_name, seed=0):
+    """dist_panel on a (rows, rows) storage against panel_factor_plain on
+    the same card tensors, bit for bit (the panel at row 0 and a middle
+    one; the other columns untouched); its first panel timed, with the
+    plain version and the bound.  Its launches leave the counts as they
+    were."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.parallel.dist_ldlt import panel_factor, panel_factor_plain
+
+    B = DIST_BLOCK
+    dtype = getattr(torch, dtype_name)
+    W = torch.as_tensor(dist_panel_storage(rows, seed), dtype=dtype, device="cuda")
+    row = {"kernel": "dist_panel", "rows": rows, "block": B, "ld": rows,
+           "dtype": dtype_name}
+    gaps = []
+    with cuda_ldlt.uncounted():
+        for row0 in dist_panel_rows0(rows):
+            work = W.clone()
+            d = panel_factor(work, row0, row0, B)
+            C, d_plain = panel_factor_plain(W[:, row0:row0 + B], row0)
+            torch.cuda.synchronize()
+            same = torch.equal(work[:, row0:row0 + B], C) and torch.equal(d, d_plain) \
+                and torch.equal(work[:, :row0], W[:, :row0]) \
+                and torch.equal(work[:, row0 + B:], W[:, row0 + B:])
+            gaps.append(max(float((work[:, row0:row0 + B] - C).abs().amax()),
+                            float((d - d_plain).abs().amax())))
+            if not same:
+                raise AssertionError(f"dist_panel ({rows}, {B}) {dtype_name} at row "
+                                     f"{row0}: differs from panel_factor_plain by {gaps[-1]:.3e}")
+        row["max_abs_err"] = max(gaps)
+        work, orig = W.clone(), W[:, :B].clone()
+        d = W.new_empty(B)
+
+        def restore():
+            work[:, :B].copy_(orig)
+
+        def factor():
+            restore()
+            cuda_ldlt.launch_dist_panel(work, 0, 0, B, d)
+
+        restore_ms = time_ms(restore)
+        row["ms"] = time_ms(factor) - restore_ms
+        row["ms_with_restore"] = row["ms"] + restore_ms
+        row["plain_ms"] = time_ms(lambda: panel_factor_plain(W[:, :B], 0))
+        row["eager_ms"] = eager_ms(factor)
+    row["bound_ms"], row["bound_by"] = dist_panel_bound(rows, 0, B, W.element_size(),
+                                                        dtype_name)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def phase_dist_kkt(dense, device="cuda", n=LARGE_N):
+    """single_large's instance (KKT dim 1280, float64) with its KKT
+    factorization on the distributed route over a one-process group (20
+    panels of 64 on dist_panel); raise unless it meets single_large's
+    standard and dist_panel and ldlt_panel (the initial multipliers)
+    launched; timed beside `dense`, single_large's result.  Then dist_panel
+    against its plain version (check_dist_panel)."""
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.model.library import flagship
+    from uno_tpu_torch.options import preset
+    from uno_tpu_torch.parallel import make_group
+
+    group = make_group(device)
+    nlp = flagship(1, n=n)[0]
+    opts = preset("ipopt", ldlt_backend="distributed")
+    if opts.dist_ldlt_block != DIST_BLOCK:
+        raise AssertionError(f"dist_ldlt_block {opts.dist_ldlt_block} != {DIST_BLOCK}")
+    f_star, x_star = large_optimum(n)
+    _reset_device_counts(device)
+    t0 = time.monotonic()
+    res = uno_tpu_torch.solve(nlp, options=opts, group=group)
+    _sync(device)
+    out = {"n": n, "kkt_dim": LARGE_KKT_DIM, "panels": LARGE_KKT_DIM // DIST_BLOCK,
+           "world": group.size, "backend": group.backend, "status": res.status,
+           "objective": res.objective, "objective_gap": res.objective - f_star,
+           "x_max_abs_diff": float(np.max(np.abs(res.x - x_star))),
+           "iterations": res.iterations, "factorizations": res.num_factorizations,
+           "wall_s": time.monotonic() - t0,
+           "dense_wall_s": dense["wall_s"], "dense_iterations": dense["iterations"],
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "peak_gib": _peak_gib(device)}
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and (out["launches_by_route"]["dist_panel"] <= 0
+                            or out["launches_by_route"]["ldlt_panel"] <= 0):
+        raise AssertionError(f"the distributed route did not launch dist_panel and "
+                             f"ldlt_panel: {out['launches_by_route']}")
+    if res.status != "optimal" or not abs(out["objective_gap"]) <= LARGE_F_ATOL \
+            or abs(res.iterations - LARGE_CPU_ITERATIONS) > LARGE_ITERATION_SLACK:
+        raise AssertionError(f"distributed route: {out}")
+    if device != "cpu":
+        out["dist_panel"] = [check_dist_panel(rows, dtype_name, seed=k)
+                             for k, (rows, dtype_name) in enumerate(
+                                 (r, t) for r in DIST_PANEL_ROWS
+                                 for t in ("float32", "float64"))]
+    return out
+
+
+def _schur_run(Ks, Bs, K0, rhs_s, rhs0, device):
+    import torch
+    from uno_tpu_torch.parallel.schur import schur_factor, schur_solve
+    args = [torch.as_tensor(a, device=device) for a in (Ks, Bs, K0, rhs_s, rhs0)]
+    fac = schur_factor(*args[:3])
+    xs, x0 = schur_solve(fac, args[1], *args[3:])
+    return fac, xs, x0, args
+
+
+def phase_schur(device="cuda", S=SCHUR_S, nb=SCHUR_NB, n0=SCHUR_N0):
+    """The Schur-complement factor and solve of a seeded block-arrow system
+    on the card (the blocks on ldlt_column, S_0 on ldlt_panel) against the
+    same code on the CPU: equal inertia (all positive), x within
+    SCHUR_X_ATOL; the card's blockwise residual within SCHUR_RESIDUAL;
+    factor and solve timed by CUDA events around eager calls, with their
+    launches."""
+    import torch
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.parallel.schur import (random_block_arrow_system,
+                                              schur_factor, schur_solve)
+
+    Ks, Bs, K0 = random_block_arrow_system(S, nb, n0, seed=SCHUR_SEED)
+    rng = np.random.default_rng(SCHUR_SEED + 1)
+    rhs_s, rhs0 = rng.standard_normal((S, nb)), rng.standard_normal(n0)
+    _reset_device_counts(device)
+    t0 = time.monotonic()
+    fac, xs, x0, args = _schur_run(Ks, Bs, K0, rhs_s, rhs0, device)
+    _sync(device)
+    inertia = (int(fac.num_pos), int(fac.num_neg), int(fac.num_zero))
+    out = {"S": S, "nb": nb, "n0": n0, "dtype": "float64",
+           "mib": {"Ks": Ks.nbytes / 2 ** 20, "Bs": Bs.nbytes / 2 ** 20,
+                   "Y": Bs.nbytes / 2 ** 20},
+           "wall_s": time.monotonic() - t0, "inertia": inertia,
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "peak_gib": _peak_gib(device)}
+    Kt, Bt, K0t, rst, r0t = args
+    r_s = torch.einsum("sij,sj->si", Kt, xs) + torch.einsum("sij,j->si", Bt, x0)
+    r_0 = torch.einsum("sij,si->j", Bt, xs) + K0t @ x0
+    resid = torch.sqrt(torch.sum((r_s - rst) ** 2) + torch.sum((r_0 - r0t) ** 2))
+    out["residual"] = float(resid / torch.sqrt(torch.sum(rst ** 2) + torch.sum(r0t ** 2)))
+    fac_c, xs_c, x0_c, _ = _schur_run(Ks, Bs, K0, rhs_s, rhs0, "cpu")
+    out["cpu_inertia"] = (int(fac_c.num_pos), int(fac_c.num_neg), int(fac_c.num_zero))
+    out["x_max_abs_diff"] = max(float((xs.cpu() - xs_c).abs().amax()),
+                                float((x0.cpu() - x0_c).abs().amax()))
+    if device != "cpu":
+        with cuda_ldlt.uncounted():
+            out["factor_ms"] = eager_ms(lambda: schur_factor(Kt, Bt, K0t), groups=3,
+                                        target_ms=100.0)
+            out["solve_ms"] = eager_ms(lambda: schur_solve(fac, Bt, rst, r0t), groups=3,
+                                       target_ms=100.0)
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and (out["launches_by_route"]["ldlt_column"] <= 0
+                            or out["launches_by_route"]["ldlt_panel"] <= 0):
+        raise AssertionError(f"schur: the blocks and S_0 did not launch ldlt_column "
+                             f"and ldlt_panel: {out['launches_by_route']}")
+    if inertia != out["cpu_inertia"] or inertia != (S * nb + n0, 0, 0):
+        raise AssertionError(f"schur: inertia {inertia}, CPU {out['cpu_inertia']}")
+    if not out["x_max_abs_diff"] <= SCHUR_X_ATOL or not out["residual"] <= SCHUR_RESIDUAL:
+        raise AssertionError(f"schur: x differs from the CPU by {out['x_max_abs_diff']:.3e}, "
+                             f"residual {out['residual']:.3e}")
+    return out
+
+
+def two_stage_problem(S, seed=0):
+    """The two-stage family of tests/test_structured.py:
+        min ||x0 - 1||^2 + sum_s ||xs - a_s||^2
+        s.t. xs_1 + xs_2 + 0.1 x0_1^2 = b_s, xs >= 0   (each scenario s)
+    with a_s ~ U(-0.5, 1.5)^3 and b_s ~ U(1, 2) from `seed`."""
+    import torch
+    from uno_tpu_torch.model.nlp import INF
+    from uno_tpu_torch.solvers.structured import ScenarioNLP
+
+    rng = np.random.default_rng(seed)
+    n0, ns, m = 2, 3, 1
+    a = rng.uniform(-0.5, 1.5, (S, ns))
+    b = rng.uniform(1.0, 2.0, (S, 1))
+
+    def f0(x0):
+        return torch.sum((x0 - 1.0) ** 2)
+
+    def fs(x0, xs, p):
+        return torch.sum((xs - p["a"]) ** 2)
+
+    def cs(x0, xs, p):
+        return torch.stack([xs[0] + xs[1] + 0.1 * x0[0] ** 2 - p["b"][0]])
+
+    return ScenarioNLP(
+        name="two_stage", n0=n0, ns=ns, m=m, S=S, f0=f0, fs=fs, cs=cs,
+        x0_lb=np.full(n0, -INF), x0_ub=np.full(n0, INF),
+        xs_lb=np.zeros(ns), xs_ub=np.full(ns, INF),
+        x0_init=np.full(n0, 0.5), xs_init=np.full((S, ns), 0.5),
+        params={"a": a, "b": b})
+
+
+def phase_structured(device="cuda", S=STRUCTURED_S, ref=STRUCTURED_REF):
+    """solve_structured_ipm on the two-stage family at S scenarios on the
+    card, against the port on the CPU and uno_tpu's CPU result; raise on
+    any difference beyond the limits or if ldlt_warp did not launch."""
+    from uno_tpu_torch.linalg import cuda_ldlt
+    from uno_tpu_torch.solvers.structured import solve_structured_ipm
+
+    snlp = two_stage_problem(S)
+    _reset_device_counts(device)
+    res = solve_structured_ipm(snlp, tol=1e-8, device=device)
+    _sync(device)
+    out = {"S": S, "blocks": [S, snlp.ns + snlp.m, snlp.ns + snlp.m], "status": res.status,
+           "iterations": res.iterations, "objective": res.objective,
+           "kkt_error": res.kkt_error, "wall_s": res.cpu_time,
+           "launches_by_route": dict(cuda_ldlt.launches),
+           "calls_by_route": dict(cuda_ldlt.calls), "peak_gib": _peak_gib(device)}
+    cpu = solve_structured_ipm(snlp, tol=1e-8, device="cpu")
+    out.update(cpu_status=cpu.status, cpu_iterations=cpu.iterations,
+               cpu_wall_s=cpu.cpu_time,
+               x_max_abs_diff=max(float(np.max(np.abs(res.x0 - cpu.x0))),
+                                  float(np.max(np.abs(res.xs - cpu.xs)))),
+               uno_tpu_x0_max_abs_diff=float(np.max(np.abs(res.x0 - np.asarray(ref["x0"])))),
+               uno_tpu_objective_rel_gap=abs(res.objective - ref["objective"])
+               / abs(ref["objective"]),
+               uno_tpu_xs_sum_diff=abs(float(np.sum(res.xs)) - ref["xs_sum"]),
+               uno_tpu_xs_sumsq_diff=abs(float(np.sum(res.xs ** 2)) - ref["xs_sumsq"]))
+    print(json.dumps(out), flush=True)
+    if device != "cpu" and out["launches_by_route"]["ldlt_warp"] <= 0:
+        raise AssertionError("the structured path launched ldlt_warp 0 times")
+    if (res.status, res.iterations) != (cpu.status, cpu.iterations) \
+            or not out["x_max_abs_diff"] <= STRUCTURED_X_ATOL:
+        raise AssertionError(f"structured: the card and the CPU differ: {out}")
+    if (res.status, res.iterations) != (ref["status"], ref["iterations"]) \
+            or not out["uno_tpu_x0_max_abs_diff"] <= STRUCTURED_X_ATOL \
+            or not out["uno_tpu_objective_rel_gap"] <= 1e-10 \
+            or not out["uno_tpu_xs_sum_diff"] <= STRUCTURED_X_ATOL * S \
+            or not out["uno_tpu_xs_sumsq_diff"] <= STRUCTURED_X_ATOL * S:
+        raise AssertionError(f"structured: uno_tpu's result differs: {out}")
+    return out
+
+
 BATCHED = "uno_tpu/linalg/pallas_ldlt.py:206"   # ldlt_factor_pallas_batched's pallas_call
 SINGLE = "uno_tpu/linalg/pallas_ldlt.py:247"    # ldlt_factor_pallas's pallas_call
+
+
+DIST_PANEL_REPLACES = "uno_tpu/parallel/dist_ldlt.py:89"   # _panel_factor (XLA, no Pallas kernel)
+KERNEL_SOURCES = {"ldlt_warp": "ldlt.cu", "ldlt_panel": "ldlt.cu",
+                  "ldlt_column": "ldlt_column.cu", "dist_panel": "dist_ldlt.cu"}
+
+
+def dist_panel_entry(path, row):
+    """dist_panel's entry of the kernels line: its launches on the
+    distributed-KKT path's run, its times and error at the path's slab
+    (check_dist_panel's row)."""
+    launches = path["launches_by_route"]["dist_panel"]
+    return {"name": "dist_panel (distributed-KKT path, dim 1280, panels of 64)",
+            "route": "cuda", "source": f"uno_tpu_torch/csrc/{KERNEL_SOURCES['dist_panel']}",
+            "replaces": DIST_PANEL_REPLACES, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "calls": path["calls_by_route"]["dist_panel"],
+            "eager_ms": row["eager_ms"], "shape": [row["rows"], row["block"]],
+            "ld": row["ld"], "dtype": row["dtype"]}
 
 
 def kernel_entry(name, replaces, path, route, row, **extra):
@@ -2010,7 +2411,7 @@ def kernel_entry(name, replaces, path, route, row, **extra):
     adds keys."""
     launches = path["launches_by_route"][route]
     calls = path["calls_by_route"][route]
-    source = "ldlt_column.cu" if route == "ldlt_column" else "ldlt.cu"
+    source = KERNEL_SOURCES[route]
     return {"name": name, "route": "cuda",
             "source": f"uno_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"],
@@ -2037,7 +2438,8 @@ def main(argv=None):
     build = run_phase("build", phase_build)
     sweep = run_phase("kernels", phase_kernels)
     large = run_phase("kernels_large", phase_kernels_large)
-    main_path = run_phase("main_path", phase_main_path)
+    main_keep = {}
+    main_path = run_phase("main_path", phase_main_path, keep=main_keep)
     n32 = run_phase("n32", phase_n32)
     n512 = run_phase("n512", phase_n512)
     single = run_phase("single", phase_single)
@@ -2053,6 +2455,10 @@ def main(argv=None):
     sparse = run_phase("sparse", phase_sparse)
     ipm_mixes = run_phase("ipm_mixes", phase_ipm_mixes)
     sqp_host = run_phase("sqp_host", phase_sqp_host)
+    sharded = run_phase("sharded", phase_sharded, main_keep.pop("result"))
+    dist_kkt = run_phase("dist_kkt", phase_dist_kkt, single_large)
+    schur = run_phase("schur", phase_schur)
+    structured = run_phase("structured", phase_structured)
     profiled = None
     if args.profile:
         profiled = run_phase("profile", phase_profile)
@@ -2101,6 +2507,13 @@ def main(argv=None):
                        in ipm_mixes["singles_largest_by_route"].items()}
     host_rows = {route: check_kernel(*shape, seed=18) for route, shape
                  in sqp_host["largest_by_route"].items()}
+    # slice 4: the Schur path's S_0 (dim 256, float64; its blocks are the
+    # sweep's (2048, 64) float64 row) and the structured path's scenario
+    # blocks (dim 4, float64)
+    schur_s0_row = check_kernel(1, SCHUR_N0, "float64", seed=19)
+    structured_row = check_kernel(STRUCTURED_S, 4, "float64", seed=20)
+    dist_panel_row = next(r for r in dist_kkt["dist_panel"]
+                          if (r["rows"], r["dtype"]) == (LARGE_KKT_DIM, "float64"))
     mix_singles = {"launches_by_route": {}, "calls_by_route": {}}
     for row in ipm_mixes["singles"]:
         for key in mix_singles:
@@ -2163,6 +2576,18 @@ def main(argv=None):
           for route, row in mix_single_rows.items()),
         *(kernel_entry(f"{route} (host SQP single-instance path)", SINGLE,
                        sqp_host, route, row) for route, row in host_rows.items()),
+        kernel_entry("ldlt_warp (sharded batched path, one-process NCCL group)",
+                     BATCHED, sharded, "ldlt_warp", batched),
+        dist_panel_entry(dist_kkt, dist_panel_row),
+        kernel_entry("ldlt_panel (distributed-KKT path, initial multipliers)",
+                     SINGLE, dist_kkt, "ldlt_panel",
+                     row_of(large, 1, LARGE_KKT_DIM, "float64")),
+        kernel_entry("ldlt_column (Schur path, scenario blocks)", BATCHED, schur,
+                     "ldlt_column", row_of(sweep, SCHUR_S, SCHUR_NB, "float64")),
+        kernel_entry("ldlt_panel (Schur path, Schur complement S_0)", SINGLE, schur,
+                     "ldlt_panel", schur_s0_row),
+        kernel_entry("ldlt_warp (structured scenario IPM, scenario blocks)", BATCHED,
+                     structured, "ldlt_warp", structured_row),
     ]
     total = time.monotonic() - t_start
     print(f"total {total:.1f} s", flush=True)
@@ -2177,15 +2602,21 @@ def main(argv=None):
                        "structured_kernels": structured_kernels,
                        "banded": banded_path, "lifted": lifted, "sparse": sparse,
                        "ipm_mixes": ipm_mixes, "sqp_host": sqp_host,
+                       "sharded": sharded, "dist_kkt": dist_kkt, "schur": schur,
+                       "structured": structured,
                        "path_kernels": [batched, single_row, n32_row, sqp_row,
                                         fit_row, byrd_row, byrd_fit_row,
                                         byrd_single_row, *nl_rows.values(),
                                         nl_cli_row, catena_row, lifted_row,
                                         steering_row, mix_row,
                                         *mix_single_rows.values(),
-                                        *host_rows.values()],
+                                        *host_rows.values(), schur_s0_row,
+                                        structured_row],
                        "profile": profiled, "kernels": kernels,
-                       "total_s": total}, fh, indent=1)
+                       "phase_seconds": phase_seconds, "total_s": total}, fh, indent=1)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": device["kind"],

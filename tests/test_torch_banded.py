@@ -203,15 +203,16 @@ def _structured_toy(structure):
 def test_build_ipm_routes_and_refuses_as_uno_tpu():
     """banded on an undeclared model, or on a constrained one without
     jac_starts, raises uno_tpu's ValueError; auto on an incomplete
-    declaration takes the dense path; the distributed backend names
-    slice 4; lifted, sparse and banded build their backends."""
+    declaration takes the dense path; the distributed backend without a
+    process group raises uno_tpu's ValueError; lifted, sparse and banded
+    build their backends."""
     opts = t_preset("ipopt")
     with pytest.raises(ValueError, match="requires the model"):
         tipm.build_ipm(_structured_toy(None), opts.replace(kkt_formulation="banded"))
     with pytest.raises(ValueError, match="jac_starts"):
         tipm.build_ipm(_structured_toy(NLPStructure(hess_bandwidth=0)),
                        opts.replace(kkt_formulation="banded"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="requires a process group"):
         tipm.build_ipm(_structured_toy(None), opts.replace(ldlt_backend="distributed"))
     prob, ws, _ = tipm.build_ipm(_structured_toy(NLPStructure(hess_bandwidth=0)), opts)
     assert tipm.pick_kkt_backend(prob, ws.m, opts) is None

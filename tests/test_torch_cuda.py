@@ -1,7 +1,9 @@
 """uno_tpu_torch on the card: the LDL^T kernels (ldlt_warp up to dim 32,
-ldlt_column up to 64, ldlt_panel above) against their plain version, and
-the batch solves (ipopt and filtersqp), the IPM's ingredient mixes and the
-host SQP driver through them.  Marked `cuda`; each
+ldlt_column up to 64, ldlt_panel above) and the distributed LDL^T's panel
+factor (dist_panel) against their plain versions, and the batch solves
+(ipopt and filtersqp), the IPM's ingredient mixes, the host SQP driver,
+the distributed KKT route on a one-process NCCL group, the sharded batch
+and the Schur-complement solver through them.  Marked `cuda`; each
 test skips where torch sees no card.  On the card:
 pytest -m cuda tests/test_torch_cuda.py"""
 
@@ -181,3 +183,60 @@ def test_host_sqp_driver_on_the_card_matches_cpu(card):
     card against CPU and uno_tpu's recorded results."""
     out = chip_smoke.phase_sqp_host("cuda")
     assert out["launches_by_route"]["ldlt_warp"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rows", [64, 202, 1280])
+def test_dist_panel_equals_its_plain_version(card, rows, dtype):
+    """dist_panel on a rank's storage against panel_factor_plain, bit for
+    bit, at the first panel and a middle one, the other columns untouched
+    (chip_smoke.check_dist_panel); 202 rows of float32 take the path
+    without 16-byte accesses."""
+    row = chip_smoke.check_dist_panel(rows, dtype, seed=rows)
+    assert row["max_abs_err"] == 0.0
+
+
+def test_dist_panel_refuses_what_it_does_not_take(card):
+    from uno_tpu_torch.parallel.dist_ldlt import panel_factor
+    work = torch.zeros((64, 96), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="panel width"):
+        panel_factor(work, 0, 0, 48)
+    with pytest.raises(ValueError, match="outside"):
+        panel_factor(work, 64, 0, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        panel_factor(work[:, :64].t(), 0, 0, 32)
+
+
+@pytest.fixture
+def nccl(card):
+    """The one-process NCCL group, destroyed after the test."""
+    from uno_tpu_torch.parallel import make_group
+    group = make_group("cuda")
+    yield group
+    torch.distributed.destroy_process_group()
+
+
+def test_distributed_kkt_on_a_one_process_nccl_group(nccl):
+    """ldlt_backend="distributed" on a one-process NCCL group equals the
+    dense route on the CPU (status and iterations, x within 1e-8) and
+    launches dist_panel."""
+    from uno_tpu_torch.model.library import scalable_quadratic
+    nlp = scalable_quadratic(100, 30, seed=2)
+    opts = uno_tpu_torch.preset("ipopt", scale_functions=False, ldlt_backend="distributed")
+    group = nccl
+    assert group.backend == "nccl" and group.device.type == "cuda"
+    before = cuda_ldlt.launches["dist_panel"]
+    gpu = uno_tpu_torch.solve(nlp, options=opts, group=group)
+    assert cuda_ldlt.launches["dist_panel"] > before
+    cpu = uno_tpu_torch.solve(nlp, options=opts.replace(ldlt_backend="auto"), device="cpu")
+    assert (gpu.status, gpu.iterations) == (cpu.status, cpu.iterations) == ("optimal", cpu.iterations)
+    np.testing.assert_allclose(gpu.x, cpu.x, atol=1e-8)
+
+
+def test_sharded_batch_and_schur_on_the_card(nccl):
+    """chip_smoke.py's sharded phase at B=256 against solve_batch on the
+    card, and its schur phase at a small size against the CPU."""
+    keep = {}
+    chip_smoke.phase_main_path("cuda", batch=256, rerun=8, keep=keep)
+    chip_smoke.phase_sharded(keep["result"], "cuda", batch=256)
+    chip_smoke.phase_schur("cuda", S=64, nb=40, n0=72)

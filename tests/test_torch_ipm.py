@@ -209,6 +209,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "import uno_tpu_torch.linalg.banded, uno_tpu_torch.linalg.banded_kkt\n"
         "import uno_tpu_torch.linalg.condensed, uno_tpu_torch.linalg.sparse_ldlt\n"
         "import uno_tpu_torch.linalg.sparse_kkt, uno_tpu_torch.model.library_cutest\n"
+        "import uno_tpu_torch.parallel, uno_tpu_torch.parallel.group\n"
+        "import uno_tpu_torch.parallel.sharding, uno_tpu_torch.parallel.schur\n"
+        "import uno_tpu_torch.parallel.dist_ldlt, uno_tpu_torch.parallel.dryrun\n"
+        "import uno_tpu_torch.solvers.structured\n"
         "bad = [m for m in sys.modules if m == 'uno_tpu' or m.startswith('uno_tpu.')\n"
         "       or (m.startswith('jax.') or m == 'jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -122,10 +122,13 @@ def test_cuda_wrapper_rejects_bad_inputs(bad):
 
 def test_cuda_wrapper_counts_only_kernel_launches():
     before = dict(cuda_ldlt.launches), dict(cuda_ldlt.calls)
-    assert set(before[0]) == set(before[1]) == {"ldlt_warp", "ldlt_column", "ldlt_panel"}
+    assert set(before[0]) == set(before[1]) == {"ldlt_warp", "ldlt_column", "ldlt_panel",
+                                                "dist_panel"}
     A = torch.as_tensor(kkt(40, 1)[0])[None]
     fac = cuda_ldlt.ldlt_factor_cuda(A)
-    # the CPU path launches nothing
+    # the CPU path launches nothing, nor does the distributed panel factor's
+    from uno_tpu_torch.parallel.dist_ldlt import panel_factor
+    panel_factor(A[0].clone(), 0, 0, 32)
     assert (cuda_ldlt.launches, cuda_ldlt.calls) == before
     # ... and runs the plain version the solver uses at that dim
     np.testing.assert_array_equal(fac.L.numpy(), tl.plain_factorizer(40)(A).L.numpy())

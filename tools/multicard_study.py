@@ -1,0 +1,163 @@
+"""Slice 4 on several cards: the dry run, the Schur-complement solver with
+the scenarios split over the ranks, the distributed dense LDL^T and the
+IPM on the distributed route, timed on this world.
+
+    torchrun --nproc_per_node N tools/multicard_study.py [--out FILE]
+    torchrun --nproc_per_node N tools/multicard_study.py --device cpu --small
+
+Each rank drives its card (cuda:LOCAL_RANK, NCCL; Gloo with --device cpu).
+Rank 0 prints one JSON object (and writes it to --out):
+  * dryrun: uno_tpu_torch.parallel.dryrun on the world;
+  * schur: chip_smoke.py's block-arrow system (S=2,048 blocks of 64, n0=256,
+    float64) through make_sharded_schur_solver, each rank its run of
+    scenarios; factor + solve timed (the slowest rank, after a barrier,
+    median of 5), x against rank 0's single-program solve of the whole
+    system on its own card;
+  * dist_ldlt: make_dist_ldlt's factor and solve of seeded KKT-like
+    matrices (chip_smoke.barrier_kkt_like) at n = 1,280 and 8,192, panels
+    of 64, timed the same way, with the inertia and the solve's residual;
+  * dist_kkt: chip_smoke.py's dim-1280 instance with
+    ldlt_backend="distributed", its iterations and wall time.
+Run it at one and at four ranks in the same call to compare them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+import uno_tpu_torch  # noqa: E402
+from uno_tpu_torch.linalg import cuda_ldlt  # noqa: E402
+from uno_tpu_torch.model.library import flagship  # noqa: E402
+from uno_tpu_torch.options import preset  # noqa: E402
+from uno_tpu_torch.parallel import make_group  # noqa: E402
+from uno_tpu_torch.parallel.dist_ldlt import make_dist_ldlt  # noqa: E402
+from uno_tpu_torch.parallel.dryrun import dryrun  # noqa: E402
+from uno_tpu_torch.parallel.schur import (make_sharded_schur_solver,  # noqa: E402
+                                          random_block_arrow_system, schur_factor,
+                                          schur_solve)
+
+
+def timed(group, fn, repeats=5):
+    """Median over `repeats` of the slowest rank's seconds for fn(), each
+    started after a barrier and ended with the device's work."""
+    out = None
+    times = []
+    for _ in range(repeats):
+        torch.distributed.barrier()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize()
+        t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64, device=group.device)
+        times.append(float(group.all_reduce(t, "max")[0]))
+    return out, float(np.median(times))
+
+
+def study_schur(group, S, nb, n0):
+    Ks, Bs, K0 = random_block_arrow_system(S, nb, n0, seed=chip_smoke.SCHUR_SEED)
+    rng = np.random.default_rng(chip_smoke.SCHUR_SEED + 1)
+    rhs_s, rhs0 = rng.standard_normal((S, nb)), rng.standard_normal(n0)
+    lo, hi = group.local_range(S)
+    dev = group.device
+    local = [torch.as_tensor(a, device=dev) for a in (Ks[lo:hi], Bs[lo:hi], K0,
+                                                      rhs_s[lo:hi], rhs0)]
+    solve = make_sharded_schur_solver(group, nb, n0)
+    cuda_ldlt.reset_counts()
+    solve(*local)
+    launches = dict(cuda_ldlt.launches)
+    (xs, x0, pos, neg, zero), seconds = timed(group, lambda: solve(*local))
+    xs = group.all_gather(xs)
+    row = {"S": S, "nb": nb, "n0": n0, "scenarios_per_rank": hi - lo,
+           "factor_solve_s": seconds, "inertia": [int(pos), int(neg), int(zero)],
+           "launches_by_route": launches}
+    if group.rank == 0:
+        full = [torch.as_tensor(a, device=dev) for a in (Ks, Bs, K0, rhs_s, rhs0)]
+        fac = schur_factor(*full[:3])
+        xs1, x01 = schur_solve(fac, full[1], *full[3:])
+        row["x_max_abs_diff_vs_one_program"] = max(float((xs - xs1).abs().amax()),
+                                                   float((x0 - x01).abs().amax()))
+    return row
+
+
+def study_dist_ldlt(group, n, block=64):
+    K, expected = chip_smoke.barrier_kkt_like(1, n, seed=n)
+    factor, solve, perm = make_dist_ldlt(group, n, block)
+    lo, hi = group.local_range(n)
+    A_loc = torch.as_tensor(K[0][:, perm][:, lo:hi], device=group.device).contiguous()
+    rhs = torch.as_tensor(np.random.default_rng(n + 1).standard_normal(n),
+                          device=group.device)
+    cuda_ldlt.reset_counts()
+    factor(A_loc)
+    launches = dict(cuda_ldlt.launches)
+    fac, factor_s = timed(group, lambda: factor(A_loc))
+    x, solve_s = timed(group, lambda: solve(fac, rhs))
+    Kt = torch.as_tensor(K[0], device=group.device)
+    resid = float(torch.linalg.vector_norm(Kt @ x - rhs) / torch.linalg.vector_norm(rhs))
+    inertia = [int(fac.num_pos), int(fac.num_neg), int(fac.num_zero)]
+    return {"n": n, "block": block, "panels": n // block, "factor_s": factor_s,
+            "solve_s": solve_s, "inertia": inertia,
+            "inertia_expected": [int(expected[0][0]), int(expected[0][1]), 0],
+            "relative_residual": resid, "launches_by_route": launches}
+
+
+def study_dist_kkt(group, n):
+    nlp = flagship(1, n=n)[0]
+    cuda_ldlt.reset_counts()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    res = uno_tpu_torch.solve(nlp, options=preset("ipopt", ldlt_backend="distributed"),
+                              group=group)
+    return {"n": n, "status": res.status, "iterations": res.iterations,
+            "objective": res.objective, "wall_s": time.perf_counter() - t0,
+            "launches_by_route": dict(cuda_ldlt.launches)}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--small", action="store_true",
+                        help="small sizes, for a rehearsal on the CPU")
+    parser.add_argument("--out")
+    args = parser.parse_args(argv)
+    group = make_group(args.device)
+    try:
+        if group.device.type == "cuda":
+            assert not torch.backends.cuda.matmul.allow_tf32
+        small = args.small
+        out = {"world": group.size, "backend": group.backend}
+        if group.device.type == "cuda":
+            out["device"] = torch.cuda.get_device_name(group.device)
+            out["nvidia_smi"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=30, check=True).stdout.strip().splitlines()
+        out["dryrun"] = {k: v for k, v in dryrun(group).items()
+                         if k not in ("x", "dist_x", "iterations")}
+        sizes = ((64, 16, 8) if small else
+                 (chip_smoke.SCHUR_S, chip_smoke.SCHUR_NB, chip_smoke.SCHUR_N0))
+        out["schur"] = study_schur(group, *sizes)
+        out["dist_ldlt"] = [study_dist_ldlt(group, n, 32 if small else 64)
+                            for n in ((256,) if small else (1280, 8192))]
+        out["dist_kkt"] = study_dist_kkt(group, 60 if small else chip_smoke.LARGE_N)
+        if group.rank == 0:
+            print(json.dumps(out), flush=True)
+            if args.out:
+                Path(args.out).write_text(json.dumps(out, indent=1))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,17 @@ derivatives come from torch.func in float64; the KKT factorization is an
 unpivoted LDL^T whose pivot signs give the inertia, a hand-written CUDA
 kernel on the card (linalg/cuda_ldlt.py, csrc/ldlt.cu).
 
+Over several cards (uno_tpu.parallel's counterpart, torch.distributed:
+NCCL on the cards, Gloo on the CPU): `parallel.make_group` gives the
+process group; `parallel.solve_batch_sharded` splits a batch over its
+ranks; `solve(..., ldlt_backend="distributed", group=...)` splits one
+instance's KKT factorization over them (parallel/dist_ldlt.py, its panels
+on the csrc/dist_ldlt.cu kernel); `solve_structured_ipm` solves two-stage
+scenario NLPs (`ScenarioNLP`) through the Schur-complement KKT
+(parallel/schur.py), on one card or with the scenarios split over a group;
+`python -m uno_tpu_torch.parallel.dryrun` (or under torchrun) drives all of
+it once.
+
 Entry points run on the card ("cuda") unless the caller passes
 device="cpu"; with no card they raise.  The package imports torch and
 numpy only, never jax or uno_tpu.
@@ -24,10 +35,13 @@ from uno_tpu_torch.solvers.ipm import (ALGORITHMIC_ERROR, ALMOST_OPTIMAL,
                                        TIME_LIMIT, UNBOUNDED, Result)
 from uno_tpu_torch.solvers.batch import BatchResult, solve_batch
 from uno_tpu_torch.api import solve
+from uno_tpu_torch.parallel import make_group, solve_batch_sharded
+from uno_tpu_torch.solvers.structured import ScenarioNLP, solve_structured_ipm
 
 __version__ = "0.1.0"
 
 __all__ = ["Options", "preset", "NLP", "nlp_from_functions", "solve",
-           "solve_batch", "Result", "BatchResult", "STATUS_NAMES", "RUNNING",
+           "solve_batch", "make_group", "solve_batch_sharded", "ScenarioNLP",
+           "solve_structured_ipm", "Result", "BatchResult", "STATUS_NAMES", "RUNNING",
            "OPTIMAL", "ALMOST_OPTIMAL", "INFEASIBLE_STATIONARY", "UNBOUNDED",
            "ALGORITHMIC_ERROR", "MAX_ITERATIONS", "TIME_LIMIT", "__version__"]

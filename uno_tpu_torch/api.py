@@ -15,6 +15,7 @@ formulation, as uno_tpu does, and the Result records it (retried_after)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -102,23 +103,29 @@ def _preflight(nlp: NLP):
 
 
 def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = None,
-          callbacks=None, history=False, device="cuda", **overrides) -> Result:
+          callbacks=None, history=False, device="cuda", group=None,
+          **overrides) -> Result:
     """Solve one NLP on `device` (default "cuda"; raises when there is no
     card).  Either pass `options`, or a `preset` name ("ipopt",
     "filtersqp", "byrd", "funnelsqp", "filterslp") with keyword
-    overrides."""
+    overrides.  `group` (parallel/group.make_group) is the process group of
+    the interior-point method's ldlt_backend="distributed"; the solve then
+    runs on the group's device."""
     if options is None:
         options = _preset(preset or "ipopt", **overrides)
     elif overrides:
         options = options.replace(**overrides)
-    device = resolve_device(device)
+    device = resolve_device(device if group is None else group.device)
+    if group is not None and options.inequality_handling_method != "primal_dual_interior_point":
+        raise ValueError("a process group serves the interior-point method's "
+                         "ldlt_backend='distributed'")
     if options.inequality_handling_method == "primal_dual_interior_point":
         if options.globalization_mechanism == "TR":
             # reference: PrimalDualInteriorPointMethod.cpp:117-119
             raise NotImplementedError(
                 "The interior-point subproblem does not support a trust "
                 "region; use globalization_mechanism='LS'")
-        run = _solve_ipm_with_retry
+        run = functools.partial(_solve_ipm_with_retry, group=group)
     else:
         byrd = is_byrd_family(options)
         fused = options.sqp_driver == "fused" or (
@@ -139,7 +146,8 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
         permuted, perm = transforms.detect_structure(nlp)
         if perm is not None:
             res = solve(permuted, options=options.replace(auto_permute=False),
-                        callbacks=callbacks, history=history, device=device)
+                        callbacks=callbacks, history=history, device=device,
+                        group=group)
             pos = np.empty(nlp.n, dtype=np.int64)
             pos[perm] = np.arange(nlp.n)
             return dataclasses.replace(res, x=np.asarray(res.x)[pos],
@@ -149,7 +157,7 @@ def solve(nlp: NLP, options: Optional[Options] = None, preset: Optional[str] = N
 
 
 def _solve_ipm_with_retry(nlp: NLP, options: Options, device, callbacks=None,
-                          history=False) -> Result:
+                          history=False, group=None) -> Result:
     """solve_ipm, and under kkt_formulation="auto" on a structured model
     that ends in algorithmic_error, solve_ipm again with the augmented
     formulation (uno_tpu/api.py:148-169): the condensed formulations square
@@ -157,7 +165,8 @@ def _solve_ipm_with_retry(nlp: NLP, options: Options, device, callbacks=None,
     family at its flat start) the augmented LDL^T is the robust one.  The
     retry's result is returned, with retried_after set, unless it ends in
     algorithmic_error too."""
-    res = solve_ipm(nlp, options, device, callbacks=callbacks, history=history)
+    res = solve_ipm(nlp, options, device, callbacks=callbacks, history=history,
+                    group=group)
     if (res.status == "algorithmic_error" and options.kkt_formulation == "auto"
             and nlp.structure is not None):
         from uno_tpu_torch.utils import logger
@@ -165,7 +174,8 @@ def _solve_ipm_with_retry(nlp: NLP, options: Options, device, callbacks=None,
                        f"algorithmic_error after {res.iterations} iterations; "
                        "retrying with kkt_formulation='augmented'")
         res2 = solve_ipm(nlp, options.replace(kkt_formulation="augmented"),
-                         device, callbacks=callbacks, history=history)
+                         device, callbacks=callbacks, history=history,
+                         group=group)
         if res2.success or res2.status != "algorithmic_error":
             return dataclasses.replace(res2, retried_after={
                 "status": res.status, "iterations": res.iterations})

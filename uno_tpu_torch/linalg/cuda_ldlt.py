@@ -35,6 +35,10 @@ uno_tpu's batch path uses at that dim (`linalg.ldlt.plain_factorizer`),
 the one place where that choice is made.  `launch(A, L, d, pos, neg, zero)`
 is the launch alone, into given outputs; by route, it adds the kernels the
 C side reports it launched to the module's `launches`, and one to `calls`.
+
+The same library holds `dist_panel` (csrc/dist_ldlt.cu), the rank-local
+panel factor of the distributed LDL^T (parallel/dist_ldlt.py), which
+`launch_dist_panel` launches and counts under its own name.
 """
 
 from __future__ import annotations
@@ -59,6 +63,10 @@ COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"
 NVCC_FLAGS = COMPILE_FLAGS + ["-shared"]     # one source straight to a library
 MAX_DIM = 46340          # dim * dim must fit the kernels' int indices
 ROUTES = ("ldlt_warp", "ldlt_column", "ldlt_panel")
+# what launches and calls count: the LDL^T routes and the distributed
+# LDL^T's panel factor
+COUNTED = (*ROUTES, "dist_panel")
+DIST_PANEL_BLOCKS = (32, 64)   # the panel widths dist_panel is built for
 WARP_MAX_DIM = 32        # ldlt_warp up to this dim
 COLUMN_MAX_DIM = 64      # ldlt_column up to this dim, ldlt_panel above
 # ldlt_column's groups: threads per instance -> the P x Q threads its rows
@@ -84,8 +92,8 @@ MAX_GRID = 2**31 - 1
 
 # since the last reset_counts(), by route: the kernels launched, as the C
 # side reports them, and the wrapper calls
-launches = dict.fromkeys(ROUTES, 0)
-calls = dict.fromkeys(ROUTES, 0)
+launches = dict.fromkeys(COUNTED, 0)
+calls = dict.fromkeys(COUNTED, 0)
 # nvcc's output of the build of this process (ptxas registers and spills)
 build_log = ""
 _lib = None
@@ -93,7 +101,7 @@ _lib = None
 
 def reset_counts() -> None:
     for counts in (launches, calls):
-        counts.update(dict.fromkeys(ROUTES, 0))
+        counts.update(dict.fromkeys(COUNTED, 0))
 
 
 @contextlib.contextmanager
@@ -302,6 +310,9 @@ def _load():
         for fn in (lib.uno_ldlt_panel_f32, lib.uno_ldlt_panel_f64):
             fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
+        for fn in (lib.uno_dist_panel_f32, lib.uno_dist_panel_f64):
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + tail
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -382,3 +393,40 @@ def ldlt_factor_cuda(A: torch.Tensor, zero_pivot_rtol: float = 1e-32,
                       for _ in range(3))
     launch(A, L, d, pos, neg, zero, zero_pivot_rtol)
     return LDLT(L, d, pos, neg, zero)
+
+
+def launch_dist_panel(work: torch.Tensor, col0: int, row0: int, block: int,
+                      d: torch.Tensor) -> None:
+    """Launch dist_panel on the current stream: factor the column slab
+    work[:, col0:col0+block] of a contiguous (n, ld) CUDA tensor in place,
+    its pivots on rows row0 .. row0+block-1, the pivots into d (block,) of
+    its dtype and device.  Counts the call and the launch under
+    "dist_panel"; raises on sizes the kernel does not take or if the launch
+    failed."""
+    if not isinstance(work, torch.Tensor) or work.dim() != 2 or not work.is_contiguous():
+        raise ValueError("work must be a contiguous 2-D tensor")
+    if work.device.type != "cuda":
+        raise ValueError(f"the kernel runs on the card; work is on {work.device}")
+    if work.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype {work.dtype}: the kernel takes float32 or float64")
+    n, ld = work.shape
+    if block not in DIST_PANEL_BLOCKS:
+        raise ValueError(f"panel width {block}: dist_panel takes {DIST_PANEL_BLOCKS}")
+    if not (0 <= col0 <= ld - block and 0 <= row0 <= n - block) or n > MAX_GRID:
+        raise ValueError(f"slab at column {col0}, rows from {row0}: outside ({n}, {ld})")
+    if d.device != work.device or d.dtype != work.dtype or tuple(d.shape) != (block,) \
+            or not d.is_contiguous():
+        raise ValueError(f"d: expected a contiguous ({block},) {work.dtype} tensor "
+                         f"on {work.device}")
+    lib = _load()
+    fn = lib.uno_dist_panel_f32 if work.dtype == torch.float32 else lib.uno_dist_panel_f64
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(work.device):
+        stream = torch.cuda.current_stream(work.device).cuda_stream
+        err = fn(work.data_ptr() + col0 * work.element_size(), d.data_ptr(), n, ld,
+                 row0, block, stream, ctypes.byref(launched))
+    launches["dist_panel"] += launched.value
+    calls["dist_panel"] += 1
+    if err != 0:
+        raise RuntimeError(f"dist_panel launch failed: CUDA error {err} "
+                           f"(n {n}, block {block}, {work.dtype})")

@@ -1,8 +1,8 @@
 """Built-in problems in torch: copies of Hock-Schittkowski problems of
 uno_tpu/model/library.py (hs014, hs015, hs016, hs021, hs035, hs038, hs071,
 hs100)
-with their known optima, and the flagship batch family of uno_tpu's bench
-(n variables, m=2).  `get_problem` also gives the scalable structured
+with their known optima, uno_tpu's random convex `scalable_quadratic`, and
+the flagship batch family of uno_tpu's bench (n variables, m=2).  `get_problem` also gives the scalable structured
 families under uno_tpu's keys (model/library_cutest.py, e.g.
 "lukvle1_n100") and the `.nl` fixtures (model/library_nl.py)."""
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uno_tpu_torch.model.nlp import INF, NLP, nlp_from_functions
+from uno_tpu_torch.model.nlp import INF, NLP, const, nlp_from_functions
 
 HS015_OPTIMUM = 306.5
 # the Hock-Schittkowski optima (uno_tpu/model/library.py); hs016 has a
@@ -201,3 +201,27 @@ def flagship(batch: int, n: int = 8, seed: int = 0):
     params = rng.uniform(-0.5, 1.0, (batch, n))
     x0 = np.tile(np.full(n, 0.5), (batch, 1))
     return nlp, x0, params
+
+
+def scalable_quadratic(n: int, m: int, seed: int = 0) -> NLP:
+    """Random strictly convex QP-like NLP with m linear inequalities and
+    bounds (uno_tpu/model/library.py:421-443, the same numpy draws)."""
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((n, n))
+    Q = Q @ Q.T / n + np.eye(n)
+    q = rng.standard_normal(n)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    b = rng.uniform(-0.5, 0.5, m)
+    cache = {}
+
+    def f(x):
+        return 0.5 * x @ (const(cache, Q, x, name="Q") @ x) + const(cache, q, x, name="q") @ x
+
+    def c(x):
+        return const(cache, A, x, name="A") @ x - const(cache, b, x, name="b")
+
+    return nlp_from_functions(
+        f"scalable_quadratic_{n}x{m}", f, c,
+        x0=np.zeros(n), x_lb=np.full(n, -2.0), x_ub=np.full(n, 2.0),
+        c_lb=np.full(m, -INF), c_ub=np.zeros(m),
+    )

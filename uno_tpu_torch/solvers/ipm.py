@@ -26,8 +26,9 @@ The KKT backend is chosen in `build_ipm` as uno_tpu's is: the dense
 augmented LDL^T (the CUDA kernels), the lifted Cholesky
 (linalg/condensed.py), the banded condensed backend for models that declare
 an NLPStructure (linalg/banded_kkt.py, structured assembly from band and
-window probes, refinement through its exact operator) or the supernodal
-sparse LDL^T (linalg/sparse_kkt.py).
+window probes, refinement through its exact operator), the supernodal
+sparse LDL^T (linalg/sparse_kkt.py) or, with a process group, the
+distributed dense LDL^T (parallel/dist_ldlt.py).
 """
 
 from __future__ import annotations
@@ -1107,12 +1108,6 @@ class Result:
                 f"stat={self.stationarity:.2e}, time={self.cpu_time:.3f}s)")
 
 
-DISTRIBUTED_NOT_PORTED = (
-    "ldlt_backend='distributed' (the KKT factorization sharded over several "
-    "cards) belongs to slice 4 of the port, multi-GPU, which is not ported: "
-    "ROADMAP queue 1, item 2")
-
-
 def pick_kkt_backend(prob: NLP, m: int, opts: Options):
     """uno_tpu's dispatch (uno_tpu/solvers/ipm.py:1068-1127): the lifted
     Cholesky for kkt_formulation="lifted"; the sparse LDL^T for "sparse",
@@ -1147,15 +1142,25 @@ def pick_kkt_backend(prob: NLP, m: int, opts: Options):
     return None
 
 
-def build_ipm(nlp: NLP, opts: Options):
-    """Setup: scaling, reformulation, workspace, KKT backend, step."""
-    if opts.ldlt_backend == "distributed":
-        raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
+def build_ipm(nlp: NLP, opts: Options, group=None):
+    """Setup: scaling, reformulation, workspace, KKT backend, step.
+
+    With ldlt_backend="distributed" the KKT factorization and its solves
+    are split over the ranks of `group` (parallel/group.py;
+    parallel/dist_ldlt.py), each rank running the same iteration on the
+    same replicated data; the instance is the batch of one."""
     scaled = transforms.scale_model(nlp, opts.function_scaling_threshold) \
         if opts.scale_functions else nlp
     prob = transforms.reformulate_for_interior_point(scaled, opts.tolerance)
     ws = _build_workspace(prob)
-    kkt_backend = pick_kkt_backend(prob, ws.m, opts)
+    if opts.ldlt_backend == "distributed":
+        if group is None:
+            raise ValueError("ldlt_backend='distributed' requires a process group")
+        from uno_tpu_torch.parallel.dist_ldlt import make_dist_kkt_backend
+        kkt_backend = make_dist_kkt_backend(group, prob.n + ws.m,
+                                            block=opts.dist_ldlt_block)
+    else:
+        kkt_backend = pick_kkt_backend(prob, ws.m, opts)
     return prob, ws, make_ipm_step(prob, ws, opts, kkt_backend=kkt_backend)
 
 
@@ -1186,10 +1191,13 @@ def _params_batch(params, batch: int, device) -> Optional[torch.Tensor]:
 
 
 def solve_ipm(nlp: NLP, opts: Options, device, callbacks=None,
-              history=False) -> Result:
-    """One instance, as the batch of one, on `device`."""
+              history=False, group=None) -> Result:
+    """One instance, as the batch of one, on `device` (the group's device
+    when a process group is given, for ldlt_backend="distributed")."""
     t0 = time.monotonic()
-    prob, ws, step = build_ipm(nlp, opts)
+    if group is not None:
+        device = group.device
+    prob, ws, step = build_ipm(nlp, opts, group)
     x0 = torch.as_tensor(prob.x0, dtype=torch.float64, device=device)[None]
     params = _params_batch(nlp.params, 1, device)
     state0 = make_initial_state(prob, ws, opts, x0, params)
