@@ -376,9 +376,14 @@ SQP_HOST_SENSITIVE_F_RTOL = 1e-6
 # 20 panels of dist_ldlt_block = 64 on dist_panel), held to single_large's
 # standard; dist_panel against panel_factor_plain bit for bit on a
 # (rows, rows) rank storage at these heights, float32 and float64, its
-# first panel (row0 0, the most work) timed and a middle one checked
+# first panel (row0 0, the most work) timed and a middle one and the last
+# checked; untimed, the same on rank 1's storage of DIST_PANEL_RANKS ranks
+# (ld = rows / 4, col0 > 0) and on panels with a NaN pivot and an infinite
+# multiplier (dist_panel_storage's `nonfinite`)
 DIST_PANEL_ROWS = (1280, 8192)
 DIST_BLOCK = 64
+DIST_PANEL_RANKS = 4
+DIST_PANEL_NONFINITE = ("nan_pivot", "inf_multiplier")
 # schur: random_block_arrow_system(S, nb, n0) in float64 (K_s 67 MB, B_s and
 # Y 268 MB each), the blocks on ldlt_column (2048, 64), S_0 on ldlt_panel
 # (1, 256); card against the same code on the CPU: equal inertia, x within
@@ -2108,25 +2113,39 @@ def phase_sharded(main_result, device="cuda", batch=MAIN_BATCH):
     return out
 
 
-def dist_panel_rows0(rows):
-    """The panels check_dist_panel factors: the first (the most work) and
-    one in the middle of the storage."""
-    return sorted({0, (rows - DIST_BLOCK) // 2})
+def dist_panel_cases(rows, block=DIST_BLOCK, ranks=1):
+    """(row0, col0) of the panels check_dist_panel factors on a rank's
+    (rows, rows / ranks) storage, as make_dist_ldlt hands them to the
+    kernel: on one rank the first panel, a middle one and the last (row0 =
+    rows - block, the most rows above it); on several, rank 1's first,
+    middle and last (col0 > 0 from its second panel on)."""
+    if ranks == 1:
+        return [(r, r) for r in sorted({0, (rows - block) // 2 // block * block,
+                                        rows - block})]
+    mine = list(range(1, rows // block, ranks))
+    return [(g * block, (g // ranks) * block)
+            for g in sorted({mine[0], mine[len(mine) // 2], mine[-1]})]
 
 
-def dist_panel_storage(rows, seed):
-    """A rank's (rows, rows) storage whose panels at dist_panel_rows0 are
-    KKT-like: small Gaussian entries, the diagonal block symmetric with
-    pivots of magnitude 10^U(0, 3), 30% of them negative."""
+def dist_panel_storage(rows, ld, seed, cases, block=DIST_BLOCK, nonfinite=None):
+    """A rank's (rows, ld) storage whose panels at `cases` are KKT-like:
+    small Gaussian entries, the diagonal block symmetric with pivots of
+    magnitude 10^U(0, 3), 30% of them negative.  `nonfinite` "nan_pivot"
+    makes each block's sixth pivot NaN, "inf_multiplier" the block's entry
+    on its 41st row (its 9th at block 32) in its fourth column +Inf."""
     rng = np.random.default_rng(seed)
-    W = rng.standard_normal((rows, rows)) * 0.1
-    for row0 in dist_panel_rows0(rows):
-        D = W[row0:row0 + DIST_BLOCK, row0:row0 + DIST_BLOCK]
+    W = rng.standard_normal((rows, ld)) * 0.1
+    at = np.arange(block)
+    for row0, col0 in cases:
+        D = W[row0:row0 + block, col0:col0 + block]
         D = (D + D.T) / 2
-        diag = 10.0 ** rng.uniform(0, 3, DIST_BLOCK)
-        D[np.arange(DIST_BLOCK), np.arange(DIST_BLOCK)] = np.where(
-            rng.uniform(size=DIST_BLOCK) < 0.3, -diag, diag)
-        W[row0:row0 + DIST_BLOCK, row0:row0 + DIST_BLOCK] = D
+        diag = 10.0 ** rng.uniform(0, 3, block)
+        D[at, at] = np.where(rng.uniform(size=block) < 0.3, -diag, diag)
+        if nonfinite == "nan_pivot":
+            D[5, 5] = np.nan
+        elif nonfinite == "inf_multiplier":
+            D[40 if block == 64 else 8, 3] = np.inf
+        W[row0:row0 + block, col0:col0 + block] = D
     return W
 
 
@@ -2144,54 +2163,81 @@ def dist_panel_bound(rows, row0, block, itemsize, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_dist_panel(rows, dtype_name, seed=0):
-    """dist_panel on a (rows, rows) storage against panel_factor_plain on
-    the same card tensors, bit for bit (the panel at row 0 and a middle
-    one; the other columns untouched); its first panel timed, with the
+def same_bits(a, b):
+    """a and b NaN at the same entries and bit for bit equal elsewhere (the
+    sign of a zero included; a NaN's payload is not IEEE's to fix)."""
+    import torch
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(torch.where(nan, 0, a).view(ints), torch.where(nan, 0, b).view(ints))
+
+
+def finite_gap(a, b):
+    """max |a - b| over the entries where both are finite (0 if none)."""
+    import torch
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b).abs()[both].amax()) if bool(both.any()) else 0.0
+
+
+def check_dist_panel(rows, dtype_name, seed=0, block=DIST_BLOCK, ranks=1, nonfinite=None,
+                     timed=True):
+    """dist_panel on a rank's (rows, rows / ranks) storage against
+    panel_factor_plain on the same card tensors, bit for bit (NaN where it
+    is NaN) at dist_panel_cases' panels, the other columns untouched; with
+    `timed`, the slab at row 0 and column 0 (the most work) timed, with the
     plain version and the bound.  Its launches leave the counts as they
     were."""
     import torch
     from uno_tpu_torch.linalg import cuda_ldlt
     from uno_tpu_torch.parallel.dist_ldlt import panel_factor, panel_factor_plain
 
-    B = DIST_BLOCK
+    B = block
     dtype = getattr(torch, dtype_name)
-    W = torch.as_tensor(dist_panel_storage(rows, seed), dtype=dtype, device="cuda")
-    row = {"kernel": "dist_panel", "rows": rows, "block": B, "ld": rows,
-           "dtype": dtype_name}
+    ld = rows // ranks
+    cases = dist_panel_cases(rows, B, ranks)
+    W = torch.as_tensor(dist_panel_storage(rows, ld, seed, cases, B, nonfinite),
+                        dtype=dtype, device="cuda")
+    row = {"kernel": "dist_panel", "rows": rows, "block": B, "ld": ld,
+           "dtype": dtype_name, "ranks": ranks, "nonfinite": nonfinite,
+           "panels": [list(c) for c in cases],
+           "grids": [cuda_ldlt.dist_panel_grid(rows, r0, B).grid for r0, _ in cases]}
     gaps = []
     with cuda_ldlt.uncounted():
-        for row0 in dist_panel_rows0(rows):
+        for row0, col0 in cases:
             work = W.clone()
-            d = panel_factor(work, row0, row0, B)
-            C, d_plain = panel_factor_plain(W[:, row0:row0 + B], row0)
+            d = panel_factor(work, col0, row0, B)
+            C, d_plain = panel_factor_plain(W[:, col0:col0 + B], row0)
             torch.cuda.synchronize()
-            same = torch.equal(work[:, row0:row0 + B], C) and torch.equal(d, d_plain) \
-                and torch.equal(work[:, :row0], W[:, :row0]) \
-                and torch.equal(work[:, row0 + B:], W[:, row0 + B:])
-            gaps.append(max(float((work[:, row0:row0 + B] - C).abs().amax()),
-                            float((d - d_plain).abs().amax())))
+            same = same_bits(work[:, col0:col0 + B], C) and same_bits(d, d_plain) \
+                and same_bits(work[:, :col0], W[:, :col0]) \
+                and same_bits(work[:, col0 + B:], W[:, col0 + B:])
+            gaps.append(max(finite_gap(work[:, col0:col0 + B], C), finite_gap(d, d_plain)))
             if not same:
-                raise AssertionError(f"dist_panel ({rows}, {B}) {dtype_name} at row "
-                                     f"{row0}: differs from panel_factor_plain by {gaps[-1]:.3e}")
+                raise AssertionError(f"dist_panel ({rows}, {B}) ld {ld} {dtype_name} "
+                                     f"{nonfinite or ''} at row {row0}, column {col0}: "
+                                     f"differs from panel_factor_plain by {gaps[-1]:.3e}")
         row["max_abs_err"] = max(gaps)
-        work, orig = W.clone(), W[:, :B].clone()
-        d = W.new_empty(B)
+        if timed:
+            work, orig = W.clone(), W[:, :B].clone()
+            d = W.new_empty(B)
 
-        def restore():
-            work[:, :B].copy_(orig)
+            def restore():
+                work[:, :B].copy_(orig)
 
-        def factor():
-            restore()
-            cuda_ldlt.launch_dist_panel(work, 0, 0, B, d)
+            def factor():
+                restore()
+                cuda_ldlt.launch_dist_panel(work, 0, 0, B, d)
 
-        restore_ms = time_ms(restore)
-        row["ms"] = time_ms(factor) - restore_ms
-        row["ms_with_restore"] = row["ms"] + restore_ms
-        row["plain_ms"] = time_ms(lambda: panel_factor_plain(W[:, :B], 0))
-        row["eager_ms"] = eager_ms(factor)
-    row["bound_ms"], row["bound_by"] = dist_panel_bound(rows, 0, B, W.element_size(),
-                                                        dtype_name)
+            restore_ms = time_ms(restore)
+            row["ms"] = time_ms(factor) - restore_ms
+            row["ms_with_restore"] = row["ms"] + restore_ms
+            row["plain_ms"] = time_ms(lambda: panel_factor_plain(W[:, :B], 0))
+            row["eager_ms"] = eager_ms(factor)
+    if timed:
+        row["bound_ms"], row["bound_by"] = dist_panel_bound(rows, 0, B, W.element_size(),
+                                                            dtype_name)
     print(json.dumps(row), flush=True)
     return row
 
@@ -2237,10 +2283,18 @@ def phase_dist_kkt(dense, device="cuda", n=LARGE_N):
             or abs(res.iterations - LARGE_CPU_ITERATIONS) > LARGE_ITERATION_SLACK:
         raise AssertionError(f"distributed route: {out}")
     if device != "cpu":
+        dtypes = ("float32", "float64")
         out["dist_panel"] = [check_dist_panel(rows, dtype_name, seed=k)
                              for k, (rows, dtype_name) in enumerate(
-                                 (r, t) for r in DIST_PANEL_ROWS
-                                 for t in ("float32", "float64"))]
+                                 (r, t) for r in DIST_PANEL_ROWS for t in dtypes)]
+        # untimed: a rank's storage of four ranks and panels with a NaN
+        # pivot and an infinite multiplier, bit for bit
+        out["dist_panel_checks"] = [
+            check_dist_panel(rows, t, seed=10 + k, ranks=DIST_PANEL_RANKS, timed=False)
+            for k, (rows, t) in enumerate((r, t) for r in DIST_PANEL_ROWS for t in dtypes)] + [
+            check_dist_panel(LARGE_KKT_DIM, t, seed=20 + k, nonfinite=kind, timed=False)
+            for k, (kind, t) in enumerate((kind, t) for kind in DIST_PANEL_NONFINITE
+                                          for t in dtypes)]
     return out
 
 

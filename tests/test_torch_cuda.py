@@ -185,14 +185,53 @@ def test_host_sqp_driver_on_the_card_matches_cpu(card):
     assert out["launches_by_route"]["ldlt_warp"] > 0
 
 
+# dist_panel's heights: with panels of 64, cuda_ldlt.dist_panel_grid's grid
+# grows with the rows to 132 CTAs at 1,120 rows (131 at 1,112), its row
+# threads go from one warp to two past 8 rows a CTA (1,120 to 1,128 rows)
+# and a CTA's rows take two passes past 64 (8,512 to 8,520 rows); 72 and
+# 80 rows make one CTA and two
+DIST_PANEL_HEIGHTS = [64, 72, 80, 202, 1112, 1120, 1128, 1280, 8512, 8520]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("rows", [64, 202, 1280])
+@pytest.mark.parametrize("rows", DIST_PANEL_HEIGHTS)
 def test_dist_panel_equals_its_plain_version(card, rows, dtype):
     """dist_panel on a rank's storage against panel_factor_plain, bit for
-    bit, at the first panel and a middle one, the other columns untouched
-    (chip_smoke.check_dist_panel); 202 rows of float32 take the path
-    without 16-byte accesses."""
-    row = chip_smoke.check_dist_panel(rows, dtype, seed=rows)
+    bit, at the first panel, a middle one and the last (row0 = rows - 64),
+    the other columns untouched (chip_smoke.check_dist_panel); 202 rows of
+    float32 take the path without 16-byte accesses."""
+    row = chip_smoke.check_dist_panel(rows, dtype, seed=rows, timed=False)
+    assert row["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rows", [32, 202, 1280])
+def test_dist_panel_of_32_columns(card, rows, dtype):
+    row = chip_smoke.check_dist_panel(rows, dtype, seed=rows, block=32, timed=False)
+    assert row["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("rows,block", [(1280, 64), (8192, 64), (1280, 32)])
+def test_dist_panel_on_a_four_rank_storage(card, rows, block, dtype):
+    """Rank 1's (rows, rows / 4) storage of four ranks, as make_dist_ldlt
+    hands it to the kernel: ld = rows / 4 and col0 > 0 past its first
+    panel."""
+    row = chip_smoke.check_dist_panel(rows, dtype, seed=rows + 1, block=block, ranks=4,
+                                      timed=False)
+    assert row["ld"] == rows // 4 and row["panels"][-1][1] > 0
+    assert row["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("block", [32, 64])
+@pytest.mark.parametrize("kind", ["nan_pivot", "inf_multiplier"])
+def test_dist_panel_on_nonfinite_panels(card, kind, block, dtype):
+    """A NaN pivot and an infinite multiplier: NaN and Inf spread over the
+    slab, the rows above the block included, as in panel_factor_plain (NaN
+    where it is NaN, the other entries bit for bit)."""
+    row = chip_smoke.check_dist_panel(1280, dtype, seed=5, block=block, nonfinite=kind,
+                                      timed=False)
     assert row["max_abs_err"] == 0.0
 
 

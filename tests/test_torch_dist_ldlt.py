@@ -9,8 +9,10 @@ other shapes), solves within 1e-7 of numpy.  The permutation equals
 uno_tpu's; the plain panel factor (the CPU's side of the dist_panel
 kernel) matches uno_tpu's _panel_factor.  The IPM with
 ldlt_backend="distributed" on scalable_quadratic(40, 12, seed=2) equals
-uno_tpu's distributed run in status and iterations, x within 1e-8.  JAX is
-imported inside the tests only: the spawned ranks import this module.
+uno_tpu's distributed run in status and iterations, x within 1e-8.  The
+dist_panel kernel's grid (cuda_ldlt.dist_panel_grid, computed on the host)
+deals every row of every slab to exactly one CTA.  JAX is imported inside
+the tests only: the spawned ranks import this module.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 
 from torch_world import run_world
 import uno_tpu_torch
+from uno_tpu_torch.linalg import cuda_ldlt
 from uno_tpu_torch.model.library import scalable_quadratic
 from uno_tpu_torch.parallel import make_group
 from uno_tpu_torch.parallel import dist_ldlt as tdl
@@ -152,6 +155,35 @@ def test_panel_factor_works_in_place_on_a_slab():
     assert torch.equal(work[:, 2 * BLOCK:3 * BLOCK], C) and torch.equal(d, d_plain)
     assert torch.equal(work[:, :2 * BLOCK], before[:, :2 * BLOCK])
     assert torch.equal(work[:, 3 * BLOCK:], before[:, 3 * BLOCK:])
+
+
+@pytest.mark.parametrize("block", cuda_ldlt.DIST_PANEL_BLOCKS)
+@pytest.mark.parametrize("n", range(64, 8193, 64))
+def test_dist_panel_grid_deals_every_row_once(n, block):
+    """At every panel of an n-row slab: every row below the diagonal block
+    and above it in exactly one CTA's runs (the block's own rows go to one
+    CTA, the last to have read them), at most one CTA an SM, one pass of
+    the row threads over a CTA's rows, and a launch the kernel takes."""
+    for row0 in range(0, n - block + 1, block):
+        geo = cuda_ldlt.dist_panel_grid(n, row0, block)
+        assert 1 <= geo.grid <= min(cuda_ldlt.SMS, cuda_ldlt.MAX_GRID)
+        row_threads = geo.threads - cuda_ldlt.LANES_A_ROW * block
+        assert row_threads % 32 == 0 and 32 <= row_threads <= cuda_ldlt.DIST_PANEL_ROW_THREADS
+        assert cuda_ldlt.LANES_A_ROW * geo.rows <= row_threads
+        cover = np.zeros(n, dtype=np.int64)
+        cover[row0:row0 + block] += 1
+        for cta in range(geo.grid):
+            below, above = geo.rows_of(cta, n, row0, block)
+            cover[below.start:below.stop] += 1
+            cover[above.start:above.stop] += 1
+        assert (cover == 1).all(), (n, block, row0, geo)
+
+
+def test_dist_panel_grid_refuses_panels_outside_the_slab():
+    with pytest.raises(ValueError, match="outside"):
+        cuda_ldlt.dist_panel_grid(128, 96, 64)
+    with pytest.raises(ValueError, match="widths"):
+        cuda_ldlt.dist_panel_grid(128, 0, 48)
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -34,6 +34,17 @@ one NVIDIA card.
     the bucket kernel's lanes update the padding too.  Both must give the
     same L, d and inertia, bit for bit.
 
+  * dist_panel (csrc/dist_ldlt.cu) at slabs of 64 to 8,192 rows, panels of
+    64, both dtypes, at the first panel, a middle one and the last: with
+    --parent, the earlier tree's kernel (built from DIR/uno_tpu_torch/
+    csrc/dist_ldlt.cu, its C entry `uno_dist_panel_<f32|f64>(C, d, n, ld,
+    row0, block, stream, launched)`) beside the current one, in turns,
+    the two bit for bit; and the current kernel built with
+    UNO_DIST_STUDY_DIAG_ONLY (the diagonal block alone: the part that does
+    not grow with the rows).  Each time is the slab's restore and the
+    launch less the restore alone.  With cuobjdump on the PATH, each
+    build's SASS instructions a dist_panel kernel.
+
 Times are chip_smoke.time_ms's: CUDA-graph replays between CUDA events.
 Prints one JSON object per measurement and the card's name and power limit
 first.  Imports torch, numpy, chip_smoke and uno_tpu_torch only.
@@ -46,6 +57,7 @@ import ctypes
 import importlib.util
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -70,7 +82,8 @@ FLAGSHIP = (chip_smoke.MAIN_BATCH, chip_smoke.MAIN_KKT_DIM)
 FIXED_DIMS = (4, 6, 8, 9, 12, 16)
 FIXED_SHAPES = [(chip_smoke.MAIN_BATCH, dim) for dim in FIXED_DIMS]
 STUDIES = ("panel_launches", "warp_parts", "warp_fixed_dim", "column_groups",
-           "parent")
+           "parent", "dist_panel")
+DIST_ROWS = (64, 128, 256, 512, 1280, 2048, 4096, 8192)
 # ldlt_column's shapes beyond the sweep's: the n=32 path's, and single
 # instances (the .nl path's srosenbr_n50 at 50, the byrd fit at 35)
 COLUMN_SHAPES = [(chip_smoke.N32_BATCH, chip_smoke.N32_KKT_DIM), (1, 35), (1, 50),
@@ -337,6 +350,117 @@ def per_kernel(rows, calls=5):
                   "sum_ms": sum(per_launch)}, rows)
 
 
+def dist_fn(lib, dtype, earlier):
+    """dist_panel's C entry point: the earlier tree's (one block, no
+    geometry) or the current one's."""
+    fn = getattr(lib, "uno_dist_panel_" + sfx(dtype))
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * (4 if earlier else 9) \
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dist_call(fn, work, col0, row0, d, earlier, name):
+    """A launch of `fn` on the slab work[:, col0:col0+block] of a (n, ld)
+    tensor, its pivots from row0, with the current tree's geometry unless
+    `earlier`."""
+    n, ld = work.shape
+    block = d.shape[0]
+    geo = cuda_ldlt.dist_panel_grid(n, row0, block)
+    launched = ctypes.c_int(0)
+    sizes = () if earlier else (geo.grid, geo.rows, geo.above, geo.threads, 0)
+    ptr = work.data_ptr() + col0 * work.element_size()
+
+    def call():
+        err = fn(ptr, d.data_ptr(), n, ld, row0, block, *sizes,
+                 torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+        if err or launched.value != 1:
+            raise RuntimeError(f"{name}: CUDA error {err}, {launched.value} launches")
+    return call
+
+
+def sass_instructions(library: Path) -> dict:
+    """The SASS instructions of each dist_panel kernel in `library`, by
+    mangled name (cuobjdump -sass), or {} without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1) if "dist_panel" in m.group(1) else None
+            if name:
+                counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name] += 1
+    return counts
+
+
+def dist_panel_study(parent, tmp: Path, rows_out, block=64):
+    """dist_panel: the earlier tree's kernel (with --parent), the current
+    one and its diagonal block alone, in turns, at DIST_ROWS x both dtypes
+    x the first, a middle and the last panel."""
+    source = cuda_ldlt.CSRC / "dist_ldlt.cu"
+    libs = {"current": (ctypes.CDLL(str(cuda_ldlt.build())), False),
+            "diag_only": (nvcc(source, tmp / "dist_diag.so",
+                               ["UNO_DIST_STUDY_DIAG_ONLY"]), False)}
+    if parent:
+        libs["earlier"] = (nvcc(parent / "uno_tpu_torch" / "csrc" / "dist_ldlt.cu",
+                                tmp / "dist_parent.so"), True)
+    order = [k for k in ("earlier", "current", "diag_only") if k in libs]
+    paths = {"current": cuda_ldlt.build(), "diag_only": tmp / "dist_diag.so",
+             "earlier": tmp / "dist_parent.so"}
+    emit({"study": "dist_panel_sass", **{k: sass_instructions(paths[k]) for k in order}},
+         rows_out)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        for rows in DIST_ROWS:
+            cases = chip_smoke.dist_panel_cases(rows, block)
+            W = torch.as_tensor(chip_smoke.dist_panel_storage(rows, rows, rows, cases, block),
+                                dtype=dtype, device="cuda")
+            for row0, _ in cases:
+                orig = W[:, row0:row0 + block].clone()
+                work = W.clone()
+                d = W.new_empty(block)
+                outs = {}
+                for kind in order:
+                    lib, earlier = libs[kind]
+                    call = dist_call(dist_fn(lib, dtype, earlier), work, row0, row0, d, earlier,
+                                     kind)
+                    work[:, row0:row0 + block].copy_(orig)
+                    call()
+                    torch.cuda.synchronize()
+                    outs[kind] = (work[:, row0:row0 + block].clone(), d.clone())
+                same = "earlier" not in outs or (
+                    chip_smoke.same_bits(outs["earlier"][0], outs["current"][0])
+                    and chip_smoke.same_bits(outs["earlier"][1], outs["current"][1]))
+                if not same:
+                    raise RuntimeError(f"earlier and current dist_panel differ at "
+                                       f"({rows}, {block}) {name} row {row0}")
+
+                def restore():
+                    work[:, row0:row0 + block].copy_(orig)
+
+                times = {kind: [] for kind in order}
+                restore_ms = chip_smoke.time_ms(restore)
+                for kind in order + order[::-1]:
+                    lib, earlier = libs[kind]
+                    call = dist_call(dist_fn(lib, dtype, earlier), work, row0, row0, d, earlier,
+                                     kind)
+                    times[kind].append(chip_smoke.time_ms(lambda: (restore(), call()))
+                                       - restore_ms)
+                geo = cuda_ldlt.dist_panel_grid(rows, row0, block)
+                bound, by = chip_smoke.dist_panel_bound(rows, row0, block, W.element_size(),
+                                                        name)
+                emit({"study": "dist_panel", "rows": rows, "block": block, "row0": row0,
+                      "dtype": name, "grid": geo.grid, "threads": geo.threads,
+                      "rows_a_cta": geo.rows, "restore_ms": restore_ms,
+                      **{f"{kind}_ms": v for kind, v in times.items()},
+                      "bound_ms": bound, "bound_by": by, "bitwise_equal": same}, rows_out)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path,
@@ -365,6 +489,8 @@ def main(argv=None):
             column_groups(rows)
         if "parent" in args.only and args.parent:
             compare_parent(args.parent, Path(tmp), rows)
+        if "dist_panel" in args.only:
+            dist_panel_study(args.parent, Path(tmp), rows)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": smi.stdout.strip(), "rows": rows}, fh, indent=1)

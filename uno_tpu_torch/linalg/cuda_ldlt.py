@@ -38,7 +38,8 @@ C side reports it launched to the module's `launches`, and one to `calls`.
 
 The same library holds `dist_panel` (csrc/dist_ldlt.cu), the rank-local
 panel factor of the distributed LDL^T (parallel/dist_ldlt.py), which
-`launch_dist_panel` launches and counts under its own name.
+`launch_dist_panel` launches and counts under its own name, one launch a
+call, on a grid of CTAs that `dist_panel_grid` sizes.
 """
 
 from __future__ import annotations
@@ -67,6 +68,14 @@ ROUTES = ("ldlt_warp", "ldlt_column", "ldlt_panel")
 # LDL^T's panel factor
 COUNTED = (*ROUTES, "dist_panel")
 DIST_PANEL_BLOCKS = (32, 64)   # the panel widths dist_panel is built for
+# dist_panel's grid: a CTA takes at least this many of the rows below the
+# diagonal block (while there are CTAs to spare), over at most this many
+# row threads (4 a row), beside its block producers; a launch names one of
+# DIST_PANEL_TICKETS counters (csrc/dist_ldlt.cu's DIST_TICKETS)
+DIST_PANEL_MIN_ROWS = 8
+DIST_PANEL_ROW_THREADS = 256
+DIST_PANEL_TICKETS = 256
+LANES_A_ROW = 4          # dist_panel's threads a row (LANES in dist_ldlt.cu)
 WARP_MAX_DIM = 32        # ldlt_warp up to this dim
 COLUMN_MAX_DIM = 64      # ldlt_column up to this dim, ldlt_panel above
 # ldlt_column's groups: threads per instance -> the P x Q threads its rows
@@ -97,6 +106,7 @@ calls = dict.fromkeys(COUNTED, 0)
 # nvcc's output of the build of this process (ptxas registers and spills)
 build_log = ""
 _lib = None
+_dist_panel_slot = 0      # the ticket counter the next dist_panel launch names
 
 
 def reset_counts() -> None:
@@ -230,6 +240,41 @@ def plan(batch: int, dim: int, dtype: torch.dtype, route: str | None = None,
                 (panel_smem, trail_smem), tuple(grids))
 
 
+@dataclass(frozen=True)
+class DistPanelGrid:
+    """dist_panel's launch on a slab of n rows whose pivots lie on rows
+    row0 .. row0+block-1: `grid` CTAs of `threads` threads (the producers,
+    LANES_A_ROW a row of the diagonal block, then the row threads),
+    CTA c taking `rows` rows below the block and `above` rows above it;
+    the diagonal block's rows go to the CTA that reads them last."""
+    grid: int
+    rows: int
+    above: int
+    threads: int
+
+    def rows_of(self, cta: int, n: int, row0: int, block: int) -> tuple[range, range]:
+        """The rows CTA `cta` takes, below the block and above it, as
+        csrc/dist_ldlt.cu deals them."""
+        first = row0 + block + cta * self.rows
+        return (range(first, min(n, first + self.rows)),
+                range(cta * self.above, min(row0, (cta + 1) * self.above)))
+
+
+def dist_panel_grid(n: int, row0: int, block: int, sms: int = SMS) -> DistPanelGrid:
+    """About one wave of the card at every height: a CTA an SM while the
+    slab has DIST_PANEL_MIN_ROWS rows outside the block a CTA, the rows
+    below and the rows above the block each dealt evenly over the CTAs,
+    and as many row threads as a CTA's rows below need, in whole warps (at
+    least one: it also takes the ticket)."""
+    if block not in DIST_PANEL_BLOCKS or not 0 <= row0 <= n - block:
+        raise ValueError(f"panel of {block} at row {row0}: outside {n} rows "
+                         f"(widths {DIST_PANEL_BLOCKS})")
+    grid = max(1, min(sms, _ceil(n - block, DIST_PANEL_MIN_ROWS)))
+    rows = _ceil(n - row0 - block, grid)
+    threads = min(DIST_PANEL_ROW_THREADS, max(32, _ceil(LANES_A_ROW * rows, 32) * 32))
+    return DistPanelGrid(grid, rows, _ceil(row0, grid), LANES_A_ROW * block + threads)
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
@@ -311,7 +356,7 @@ def _load():
             fn.argtypes = ptrs + [ctypes.c_int] * 3 + tail
             fn.restype = ctypes.c_int
         for fn in (lib.uno_dist_panel_f32, lib.uno_dist_panel_f64):
-            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + tail
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + tail
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -400,9 +445,10 @@ def launch_dist_panel(work: torch.Tensor, col0: int, row0: int, block: int,
     """Launch dist_panel on the current stream: factor the column slab
     work[:, col0:col0+block] of a contiguous (n, ld) CUDA tensor in place,
     its pivots on rows row0 .. row0+block-1, the pivots into d (block,) of
-    its dtype and device.  Counts the call and the launch under
-    "dist_panel"; raises on sizes the kernel does not take or if the launch
-    failed."""
+    its dtype and device, on dist_panel_grid's grid.  Counts the call and
+    the launch under "dist_panel"; raises on sizes the kernel does not take
+    or if the launch failed."""
+    global _dist_panel_slot
     if not isinstance(work, torch.Tensor) or work.dim() != 2 or not work.is_contiguous():
         raise ValueError("work must be a contiguous 2-D tensor")
     if work.device.type != "cuda":
@@ -418,13 +464,16 @@ def launch_dist_panel(work: torch.Tensor, col0: int, row0: int, block: int,
             or not d.is_contiguous():
         raise ValueError(f"d: expected a contiguous ({block},) {work.dtype} tensor "
                          f"on {work.device}")
+    geo = dist_panel_grid(n, row0, block)
     lib = _load()
     fn = lib.uno_dist_panel_f32 if work.dtype == torch.float32 else lib.uno_dist_panel_f64
     launched = ctypes.c_int(0)
+    slot, _dist_panel_slot = _dist_panel_slot, (_dist_panel_slot + 1) % DIST_PANEL_TICKETS
     with torch.cuda.device(work.device):
         stream = torch.cuda.current_stream(work.device).cuda_stream
         err = fn(work.data_ptr() + col0 * work.element_size(), d.data_ptr(), n, ld,
-                 row0, block, stream, ctypes.byref(launched))
+                 row0, block, geo.grid, geo.rows, geo.above, geo.threads, slot, stream,
+                 ctypes.byref(launched))
     launches["dist_panel"] += launched.value
     calls["dist_panel"] += 1
     if err != 0:
