@@ -45,6 +45,14 @@ overruns raises, and the script exits non-zero):
                   solved with ipopt on the card and on the CPU; then the
                   command line (uno_tpu_torch.__main__.main) with byrd on a
                   copy of a fixture in a temporary directory
+ 14b. registry    every key of the problem registry with n + m <= 30 (249)
+                  solved with ipopt on the card by 4 worker processes,
+                  each held to uno_tpu's CPU result in
+                  tests/fixtures/torch_registry_ref.json (status,
+                  iterations, objective; the keys of REGISTRY_PARTS, which
+                  part from uno_tpu by rounding, its solved verdict) and
+                  the solved count by tools/sweep_torch.py's rule equal to
+                  uno_tpu's; launches by route
  15. structured_kernels  bench.py's structured factorize+solve pairs: the
                   block-tridiagonal Cholesky at n=4,096, half-bandwidth 31
                   (cyclic reduction), float32 and float64, and the
@@ -102,10 +110,11 @@ operations (cholesky_ex, triangular solves, matmuls), as uno_tpu's are
 outside Pallas; their paths still run the LDL^T kernels for the initial
 multipliers and catena's retry.
 
-Imports torch, numpy and uno_tpu_torch only.  Starts no child process
-other than nvidia-smi, nvcc and g++, and no thread of its own (the
-one-process NCCL group of phases 21-22 runs NCCL's, and is destroyed
-before the last lines).
+Imports torch, numpy, uno_tpu_torch and tools/sweep_torch.py's solved
+rule only.  Starts no child process other than nvidia-smi, nvcc, g++ and
+the registry phase's REGISTRY_JOBS workers (a pool it closes before the
+next phase), and no thread of its own (the one-process NCCL group of
+phases 21-22 runs NCCL's, and is destroyed before the last lines).
 """
 
 from __future__ import annotations
@@ -128,7 +137,7 @@ import numpy as np
 BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 300,
            "main_path": 360, "n32": 240, "n512": 240, "single": 120,
            "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
-           "byrd_batch": 360, "byrd_single": 180, "nl": 300,
+           "byrd_batch": 360, "byrd_single": 180, "nl": 300, "registry": 300,
            "structured_kernels": 300, "banded": 600, "lifted": 300,
            "sparse": 600, "ipm_mixes": 300, "sqp_host": 300,
            "sharded": 240, "dist_kkt": 300, "schur": 300, "structured": 300,
@@ -267,6 +276,40 @@ NL_CLI_FIXTURE = "hs015like_n10.nl"
 NL_CLI_KKT_DIM = 20
 NL_F_TOL = 1e-8
 NL_SOL_ATOL = 1e-12
+# the registry phase: every key of the problem registry with n + m <= 30,
+# under ipopt as tools/sweep_torch.py solves it, held to uno_tpu's CPU
+# results recorded by tools/registry_reference.py
+REGISTRY_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_registry_ref.json"
+# seconds one key's solve may take on the card (the slowest, hs101, took
+# 9.1 s alone and 8.0 s beside three other workers); going past it fails
+# the phase
+REGISTRY_KEY_WALL = 20.0
+# worker processes solving the keys, each with its own CUDA context
+REGISTRY_JOBS = 4
+REGISTRY_F_RTOL = 1e-8
+# the keys whose run on the card may part from uno_tpu's recorded run (and
+# must still get uno_tpu's solved verdict): key -> (the first iteration at
+# which the port's iterates leave uno_tpu's on the CPU, the quantity that
+# parts them).  Each is backed by a CPU test of
+# tests/test_torch_registry_parts.py: uno_tpu's own run parting the same
+# way when x0 moves by one ulp (hs009, whose x0 is 0: by 1e-16), and for
+# hs061 the pivot itself; any other mismatch is a port fault
+REGISTRY_PARTS = {
+    "biggs6": (26, "x, by 1e-10 (77 iterations on the card, 76 in uno_tpu)"),
+    "genhumps_n10": (26, "x, by 1e-10"),
+    "genhumps_n30": (24, "x, by 1e-10"),
+    "hs009": (4, "stationarity at the termination test (uno_tpu ends "
+                 "almost_optimal in 17 iterations, the port optimal in 4)"),
+    "hs050": (1, "x, by O(1): the first step"),
+    "hs061": (0, "the least-squares initial multipliers: the last pivot of "
+                 "[I J^T; J 0], exactly singular at x0, is -8.9e-16 under "
+                 "XLA's fused multiply-add and 0 in the port, which then "
+                 "rejects them (filed in ROADMAP.md queue 3)"),
+    "meyer": (20, "x, by 1e-10"),
+    "noncvxun_n10": (10, "x, by 1e-10"),
+    "penalty2_n10": (29, "x, by 1e-10"),
+    "powell_bs": (43, "x, by 1e-10"),
+}
 # the structured KKT backends.  bench.py's structured shapes: the banded
 # matrix at n=4,096, half-bandwidth 31 (bench.py:372-380; blocks of 32, 128
 # of them, so cyclic reduction) and the sparse one at N=8,192, band 4 plus
@@ -1203,6 +1246,126 @@ def phase_nl(device="cuda"):
     if c["exit_code"] != 0 or c["status"] != "optimal" \
             or not c["sol_x_max_abs_diff"] <= NL_SOL_ATOL:
         raise AssertionError(f"nl path, command line: {c}")
+    return out
+
+
+def _registry_solve(job):
+    """One key of the registry phase, in a worker process: solve(name) with
+    ipopt on `device`, every count zeroed just before it; the row, the
+    kernel and backend counts of that solve, and the largest shape each
+    LDL^T route was given."""
+    name, device = job
+    import uno_tpu_torch
+    from uno_tpu_torch.linalg import banded_kkt, cuda_ldlt, sparse_ldlt
+    from uno_tpu_torch.model.library import acceptable_optima, get_problem
+    from sweep_torch import MAX_ITER, is_solved
+
+    nlp = get_problem(name)
+    for mod in (banded_kkt, sparse_ldlt, cuda_ldlt):
+        mod.reset_counts()
+    with largest_factorizations() as largest:
+        t0 = time.monotonic()
+        res = uno_tpu_torch.solve(nlp, preset="ipopt", device=device,
+                                  max_iterations=MAX_ITER["ipopt"])
+        wall = time.monotonic() - t0
+    return name, {
+        "n": nlp.n, "m": nlp.m, "status": res.status, "iterations": res.iterations,
+        "objective": res.objective, "wall_s": wall,
+        "solved": is_solved(res.status, res.success, res.primal_feasibility,
+                            res.objective, acceptable_optima(name))}, {
+        "launches_by_route": dict(cuda_ldlt.launches),
+        "calls_by_route": dict(cuda_ldlt.calls), "banded": dict(banded_kkt.counts),
+        "sparse": dict(sparse_ldlt.counts), "largest_by_route": dict(largest)}
+
+
+def _registry_worker(device):
+    """A registry worker's start: tools/ on the path for sweep_torch, and
+    one solve of hs015 on `device`, so that the card's context, the kernels'
+    library and torch's first launches are not timed as a key's solve."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import uno_tpu_torch
+    from uno_tpu_torch.model.library import get_problem
+    uno_tpu_torch.solve(get_problem("hs015"), preset="ipopt", device=device)
+
+
+def phase_registry(device="cuda", ref_path=REGISTRY_REF, jobs=REGISTRY_JOBS):
+    """Every key of torch_registry_ref.json (the registry's n + m <= 30
+    tier) solved with ipopt on `device`, max_iterations as
+    tools/sweep_torch.py sets it, by `jobs` worker processes sharing the
+    card (each solve is host-bound; each worker first solves hs015 once,
+    untimed).  Raise unless each key has uno_tpu's
+    sizes, takes at most REGISTRY_KEY_WALL s, and ends with uno_tpu's
+    status and iterations and its objective within REGISTRY_F_RTOL of
+    max(1, |f|) (a key of REGISTRY_PARTS: with uno_tpu's solved verdict),
+    unless the sweep's solved rule counts as many solved as uno_tpu's, and
+    unless the card launched ldlt_warp and ldlt_column."""
+    import multiprocessing as mp
+
+    with open(ref_path) as fh:
+        ref = json.load(fh)["rows"]
+    rows = {}
+    totals = {"launches_by_route": {}, "calls_by_route": {}, "banded": {}, "sparse": {}}
+    largest = {}
+    t_start = time.monotonic()
+    with mp.get_context("spawn").Pool(jobs, initializer=_registry_worker,
+                                      initargs=(device,)) as pool:
+        for name, row, counts in pool.imap_unordered(
+                _registry_solve, [(name, device) for name in sorted(ref)]):
+            rows[name] = row
+            for key, total in totals.items():
+                for k, v in counts[key].items():
+                    total[k] = total.get(k, 0) + v
+            for route, shape in counts["largest_by_route"].items():
+                old = largest.get(route)
+                if old is None or (shape[1], shape[0]) > (old[1], old[0]):
+                    largest[route] = shape
+    wall = time.monotonic() - t_start
+    mismatched, allowed = [], []
+    for name in sorted(rows):
+        row, r = rows[name], ref[name]
+        if (row["n"], row["m"]) != (r["n"], r["m"]):
+            raise AssertionError(f"registry: {name} has n, m = {row['n']}, {row['m']}; "
+                                 f"uno_tpu {r['n']}, {r['m']}")
+        same = ((row["status"], row["iterations"]) == (r["status"], r["iterations"])
+                and abs(row["objective"] - r["objective"])
+                <= REGISTRY_F_RTOL * max(1.0, abs(r["objective"])))
+        if not same:
+            entry = {"key": name, "status": row["status"],
+                     "iterations": row["iterations"], "objective": row["objective"],
+                     "uno_tpu": [r["status"], r["iterations"], r["objective"]]}
+            if name in REGISTRY_PARTS and row["solved"] == r["solved"]:
+                allowed.append(entry | {"parts": REGISTRY_PARTS[name]})
+            else:
+                mismatched.append(entry)
+    slow = sorted(rows, key=lambda k: -rows[k]["wall_s"])
+    out = {"keys": len(rows), "jobs": jobs,
+           "solved": sum(r["solved"] for r in rows.values()),
+           "uno_tpu_solved": sum(r["solved"] for r in ref.values()),
+           "iterations_equal": sum(rows[k]["iterations"] == ref[k]["iterations"]
+                                   for k in rows),
+           "status_equal": sum(rows[k]["status"] == ref[k]["status"] for k in rows),
+           "mismatched": mismatched, "allowed_parts": allowed, "wall_s": wall,
+           "solve_s": sum(r["wall_s"] for r in rows.values()),
+           "iterations": sum(r["iterations"] for r in rows.values()),
+           "slowest": [[k, rows[k]["wall_s"], rows[k]["iterations"]] for k in slow[:8]],
+           "launches": sum(totals["launches_by_route"].values()), **totals,
+           "largest_by_route": largest, "rows": rows}
+    print(json.dumps({k: v for k, v in out.items() if k != "rows"}), flush=True)
+    too_slow = [k for k in rows if rows[k]["wall_s"] > REGISTRY_KEY_WALL]
+    if too_slow:
+        raise AssertionError(f"registry: over {REGISTRY_KEY_WALL} s: "
+                             f"{[(k, rows[k]['wall_s']) for k in too_slow]}")
+    if mismatched:
+        raise AssertionError(f"registry: {len(mismatched)} keys part from uno_tpu: "
+                             f"{mismatched}")
+    if out["solved"] != out["uno_tpu_solved"]:
+        raise AssertionError(f"registry: {out['solved']} solved, uno_tpu "
+                             f"{out['uno_tpu_solved']}")
+    if device != "cpu":
+        for route in ("ldlt_warp", "ldlt_column"):
+            if out["launches_by_route"].get(route, 0) <= 0:
+                raise AssertionError(f"the registry path launched {route} 0 times")
     return out
 
 
@@ -2503,6 +2666,7 @@ def main(argv=None):
     byrd_batch = run_phase("byrd_batch", phase_byrd_batch)
     byrd_single = run_phase("byrd_single", phase_byrd_single)
     nl = run_phase("nl", phase_nl)
+    registry = run_phase("registry", phase_registry)
     structured_kernels = run_phase("structured_kernels", phase_structured_kernels)
     banded_path = run_phase("banded", phase_banded)
     lifted = run_phase("lifted", phase_lifted)
@@ -2561,6 +2725,9 @@ def main(argv=None):
                        in ipm_mixes["singles_largest_by_route"].items()}
     host_rows = {route: check_kernel(*shape, seed=18) for route, shape
                  in sqp_host["largest_by_route"].items()}
+    # the registry tier's solves at the largest shape each route was given
+    registry_rows = {route: check_kernel(*shape, seed=21) for route, shape
+                     in registry["largest_by_route"].items()}
     # slice 4: the Schur path's S_0 (dim 256, float64; its blocks are the
     # sweep's (2048, 64) float64 row) and the structured path's scenario
     # blocks (dim 4, float64)
@@ -2611,6 +2778,8 @@ def main(argv=None):
                      nl_rows["ldlt_column"]),
         kernel_entry("ldlt_warp (nl path, byrd command line)", SINGLE, nl,
                      "ldlt_warp", nl_cli_row),
+        *(kernel_entry(f"{route} (registry path, n + m <= 30, ipopt)", SINGLE,
+                       registry, route, row) for route, row in registry_rows.items()),
         kernel_entry("ldlt_panel (banded path, lukvle1 n=4096 initial multipliers)",
                      SINGLE, banded_path["lukvle1"], "ldlt_panel",
                      row_of(large, 1, STRUCT_INIT_DIM, "float64")),
@@ -2652,7 +2821,7 @@ def main(argv=None):
                        "n32": n32, "n512": n512, "single": single,
                        "single_large": single_large, "sqp_batch": sqp_batch,
                        "sqp_single": sqp_single, "byrd_batch": byrd_batch,
-                       "byrd_single": byrd_single, "nl": nl,
+                       "byrd_single": byrd_single, "nl": nl, "registry": registry,
                        "structured_kernels": structured_kernels,
                        "banded": banded_path, "lifted": lifted, "sparse": sparse,
                        "ipm_mixes": ipm_mixes, "sqp_host": sqp_host,
@@ -2664,7 +2833,8 @@ def main(argv=None):
                                         nl_cli_row, catena_row, lifted_row,
                                         steering_row, mix_row,
                                         *mix_single_rows.values(),
-                                        *host_rows.values(), schur_s0_row,
+                                        *host_rows.values(),
+                                        *registry_rows.values(), schur_s0_row,
                                         structured_row],
                        "profile": profiled, "kernels": kernels,
                        "phase_seconds": phase_seconds, "total_s": total}, fh, indent=1)

@@ -24,7 +24,7 @@ from uno_tpu.solvers.batch import solve_batch as j_solve_batch
 from uno_tpu.solvers.ipm import canonicalize_state
 from uno_tpu_torch.interop import state_from_numpy, state_to_numpy
 from uno_tpu_torch.io import read_nl as t_read_nl
-from uno_tpu_torch.model.library import OPTIMA, flagship
+from uno_tpu_torch.model.library import flagship, known_optimum, problem_names
 from uno_tpu_torch.model.library import get_problem as t_problem
 from uno_tpu_torch.model.nlp import nlp_from_functions as t_nlp
 from uno_tpu_torch.solvers import sqp_fused as tsqp
@@ -72,8 +72,9 @@ def test_single_instance_solve_matches(name):
     else:
         assert res.status == "optimal"
         assert res.num_subproblems_solved >= res.iterations
-    if name in OPTIMA:
-        assert res.objective == pytest.approx(OPTIMA[name], rel=1e-6, abs=1e-6)
+    if name in problem_names():
+        assert res.objective == pytest.approx(known_optimum(name), rel=1e-6,
+                                              abs=1e-6)
 
 
 def _batch_family(mk, total):

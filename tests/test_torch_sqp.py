@@ -17,7 +17,7 @@ from uno_tpu.solvers import sqp_fused as jsqp
 from uno_tpu.solvers.batch import build_batch_sqp as j_build_batch_sqp
 from uno_tpu.solvers.ipm import canonicalize_state
 from uno_tpu_torch.interop import state_from_numpy, state_to_numpy
-from uno_tpu_torch.model.library import OPTIMA, flagship
+from uno_tpu_torch.model.library import flagship, known_optimum, problem_names
 from uno_tpu_torch.model.library import get_problem as t_problem
 from uno_tpu_torch.model.nlp import nlp_from_functions as t_nlp
 from uno_tpu_torch.solvers import sqp_fused as tsqp
@@ -143,8 +143,9 @@ def test_single_instance_solve_matches(preset, name):
     assert (res.status, res.iterations) == (status, iterations)
     np.testing.assert_allclose(res.x, x_ref, rtol=0, atol=X_TOL)
     assert res.objective == pytest.approx(f_ref, rel=F_RTOL, abs=1e-300)
-    if name in OPTIMA and status == "optimal":
-        assert res.objective == pytest.approx(OPTIMA[name], rel=1e-6, abs=1e-6)
+    if name in problem_names() and status == "optimal":
+        assert res.objective == pytest.approx(known_optimum(name), rel=1e-6,
+                                              abs=1e-6)
     if name == "ring":
         assert 1 in [int(s.phase) for s in states]       # restoration ran
     if name == "infeas":
