@@ -53,6 +53,14 @@ overruns raises, and the script exits non-zero):
                   part from uno_tpu by rounding, its solved verdict) and
                   the solved count by tools/sweep_torch.py's rule equal to
                   uno_tpu's; launches by route
+ 14c. nl_corpus   48 keys of the committed AMPL corpus transcribed on the
+                  machine by tools/torch_to_nl.py (no JAX), each read with
+                  read_nl, its f and c held within 1e-12 of uno_tpu's
+                  reading of the committed file at four points
+                  (tests/fixtures/torch_nl_corpus_ref.json) and solved with
+                  ipopt on the card by 4 worker processes, held to uno_tpu's
+                  status, iterations and objective; prints how many
+                  transcripts are the committed files byte for byte
  15. structured_kernels  bench.py's structured factorize+solve pairs: the
                   block-tridiagonal Cholesky at n=4,096, half-bandwidth 31
                   (cyclic reduction), float32 and float64, and the
@@ -138,6 +146,7 @@ BUDGETS = {"device": 60, "build": 320, "kernels": 300, "kernels_large": 300,
            "main_path": 360, "n32": 240, "n512": 240, "single": 120,
            "single_large": 180, "sqp_batch": 360, "sqp_single": 180,
            "byrd_batch": 360, "byrd_single": 180, "nl": 300, "registry": 300,
+           "nl_corpus": 120,
            "structured_kernels": 300, "banded": 600, "lifted": 300,
            "sparse": 600, "ipm_mixes": 300, "sqp_host": 300,
            "sharded": 240, "dist_kkt": 300, "schur": 300, "structured": 300,
@@ -292,8 +301,8 @@ REGISTRY_F_RTOL = 1e-8
 # which the port's iterates leave uno_tpu's on the CPU, the quantity that
 # parts them).  Each is backed by a CPU test of
 # tests/test_torch_registry_parts.py: uno_tpu's own run parting the same
-# way when x0 moves by one ulp (hs009, whose x0 is 0: by 1e-16), and for
-# hs061 the pivot itself; any other mismatch is a port fault
+# way when x0 moves by one ulp (hs009, whose x0 is 0: by 1e-16); any other
+# mismatch is a port fault
 REGISTRY_PARTS = {
     "biggs6": (26, "x, by 1e-10 (77 iterations on the card, 76 in uno_tpu)"),
     "genhumps_n10": (26, "x, by 1e-10"),
@@ -301,14 +310,33 @@ REGISTRY_PARTS = {
     "hs009": (4, "stationarity at the termination test (uno_tpu ends "
                  "almost_optimal in 17 iterations, the port optimal in 4)"),
     "hs050": (1, "x, by O(1): the first step"),
-    "hs061": (0, "the least-squares initial multipliers: the last pivot of "
-                 "[I J^T; J 0], exactly singular at x0, is -8.9e-16 under "
-                 "XLA's fused multiply-add and 0 in the port, which then "
-                 "rejects them (filed in ROADMAP.md queue 3)"),
     "meyer": (20, "x, by 1e-10"),
     "noncvxun_n10": (10, "x, by 1e-10"),
     "penalty2_n10": (29, "x, by 1e-10"),
     "powell_bs": (43, "x, by 1e-10"),
+}
+# the nl_corpus phase: 48 keys of the committed AMPL corpus (the manifest's
+# "ok" keys with n + m <= 30, sorted, every fifth), transcribed on the
+# machine by tools/torch_to_nl.py and held to uno_tpu's readings and ipopt
+# solves of the committed files in tests/fixtures/torch_nl_corpus_ref.json
+NL_CORPUS_REF = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+    "torch_nl_corpus_ref.json"
+NL_CORPUS_F_RTOL = 1e-12
+# worker processes: the phase's 90 s want more than the registry's 4
+NL_CORPUS_JOBS = 6
+NL_CORPUS_OBJ_RTOL = 1e-8
+# the keys whose solve on the card may part from uno_tpu's (with its
+# solved verdict): key -> the reason
+NL_CORPUS_PARTS = {}
+# the keys of REGISTRY_PARTS whose solved verdict itself parts by rounding:
+# uno_tpu's own run reaches another status at the same objective when x0
+# moves by one ulp (tests/test_torch_registry_parts.py).  Their runs on the
+# card are held to uno_tpu's objective within REGISTRY_F_RTOL in place of
+# its verdict, and they leave the solved counts
+REGISTRY_VERDICT_PARTS = {
+    "meyer": "the termination test at about iteration 195 sits at the "
+             "tolerance: uno_tpu ends algorithmic_error in 197 iterations, "
+             "and optimal in 194 from x0 with x0[1] moved up by one ulp",
 }
 # the structured KKT backends.  bench.py's structured shapes: the banded
 # matrix at n=4,096, half-bandwidth 31 (bench.py:372-380; blocks of 32, 128
@@ -496,7 +524,29 @@ def phase_device():
     print(line, flush=True)
     return {"kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": line,
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "fused_update": check_fused_update()}
+
+
+def check_fused_update():
+    """The plain versions' rank-1 update is one fused multiply-add
+    (torch.addcmul), as XLA:CPU compiles uno_tpu's: on this machine's CPU
+    and card, hs061's exactly singular least-squares system keeps its last
+    pivot -8.881784197001252e-16 (rounding the product first gives 0)."""
+    import torch
+    from uno_tpu_torch.linalg.ldlt import ldlt_factor_unrolled
+    K = torch.zeros(5, 5, dtype=torch.float64)
+    K[:3, :3] = torch.eye(3, dtype=torch.float64)
+    K[3, 0] = K[0, 3] = 3.0
+    K[4, 0] = K[0, 4] = 4.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fac = ldlt_factor_unrolled(K.to(dev)[None])
+        out[dev] = float(fac.d[0, -1])
+        if out[dev] != -8.881784197001252e-16 or int(fac.num_zero[0]) != 0:
+            raise AssertionError(f"the plain LDL^T update is not fused on {dev}: "
+                                 f"last pivot {out[dev]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1297,8 +1347,10 @@ def phase_registry(device="cuda", ref_path=REGISTRY_REF, jobs=REGISTRY_JOBS):
     untimed).  Raise unless each key has uno_tpu's
     sizes, takes at most REGISTRY_KEY_WALL s, and ends with uno_tpu's
     status and iterations and its objective within REGISTRY_F_RTOL of
-    max(1, |f|) (a key of REGISTRY_PARTS: with uno_tpu's solved verdict),
-    unless the sweep's solved rule counts as many solved as uno_tpu's, and
+    max(1, |f|) (a key of REGISTRY_PARTS: with uno_tpu's solved verdict,
+    or of REGISTRY_VERDICT_PARTS: at uno_tpu's objective), unless the
+    sweep's solved rule counts as many solved as uno_tpu's (the keys of
+    REGISTRY_VERDICT_PARTS left out), and
     unless the card launched ldlt_warp and ldlt_column."""
     import multiprocessing as mp
 
@@ -1334,14 +1386,18 @@ def phase_registry(device="cuda", ref_path=REGISTRY_REF, jobs=REGISTRY_JOBS):
             entry = {"key": name, "status": row["status"],
                      "iterations": row["iterations"], "objective": row["objective"],
                      "uno_tpu": [r["status"], r["iterations"], r["objective"]]}
-            if name in REGISTRY_PARTS and row["solved"] == r["solved"]:
+            same_point = abs(row["objective"] - r["objective"]) \
+                <= REGISTRY_F_RTOL * max(1.0, abs(r["objective"]))
+            if name in REGISTRY_PARTS and (row["solved"] == r["solved"] or (
+                    name in REGISTRY_VERDICT_PARTS and same_point)):
                 allowed.append(entry | {"parts": REGISTRY_PARTS[name]})
             else:
                 mismatched.append(entry)
     slow = sorted(rows, key=lambda k: -rows[k]["wall_s"])
+    counted = [k for k in rows if k not in REGISTRY_VERDICT_PARTS]
     out = {"keys": len(rows), "jobs": jobs,
-           "solved": sum(r["solved"] for r in rows.values()),
-           "uno_tpu_solved": sum(r["solved"] for r in ref.values()),
+           "solved": sum(rows[k]["solved"] for k in counted),
+           "uno_tpu_solved": sum(ref[k]["solved"] for k in counted),
            "iterations_equal": sum(rows[k]["iterations"] == ref[k]["iterations"]
                                    for k in rows),
            "status_equal": sum(rows[k]["status"] == ref[k]["status"] for k in rows),
@@ -1366,6 +1422,141 @@ def phase_registry(device="cuda", ref_path=REGISTRY_REF, jobs=REGISTRY_JOBS):
         for route in ("ldlt_warp", "ldlt_column"):
             if out["launches_by_route"].get(route, 0) <= 0:
                 raise AssertionError(f"the registry path launched {route} 0 times")
+    return out
+
+
+def _nl_corpus_solve(job):
+    """One transcript of the nl_corpus phase, in a worker process: read with
+    the port's read_nl, solved with ipopt on `device`; the row and the
+    kernels' counts of that solve, as _registry_solve."""
+    key, path, device = job
+    import uno_tpu_torch
+    from uno_tpu_torch.io import read_nl
+    from uno_tpu_torch.linalg import banded_kkt, cuda_ldlt, sparse_ldlt
+
+    nlp = read_nl(path)
+    for mod in (banded_kkt, sparse_ldlt, cuda_ldlt):
+        mod.reset_counts()
+    with largest_factorizations() as largest:
+        t0 = time.monotonic()
+        res = uno_tpu_torch.solve(nlp, preset="ipopt", device=device,
+                                  max_iterations=2000)
+        wall = time.monotonic() - t0
+    return key, {"status": res.status, "iterations": res.iterations,
+                 "objective": res.objective, "wall_s": wall}, {
+        "launches_by_route": dict(cuda_ldlt.launches),
+        "calls_by_route": dict(cuda_ldlt.calls), "largest_by_route": dict(largest)}
+
+
+def _rel_gap(a, b):
+    """max |a - b| / max(1, |b|); entries that are the same non-finite
+    value on both sides (a log of a negative at a seeded point) agree."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    same = (np.isnan(a) & np.isnan(b)) | (np.isinf(a) & (a == b))
+    gap = np.where(same, 0.0, np.abs(a - b) / np.maximum(1.0, np.abs(b)))
+    return float(np.max(gap, initial=0.0))
+
+
+def phase_nl_corpus(device="cuda", ref_path=NL_CORPUS_REF, jobs=NL_CORPUS_JOBS):
+    """The AMPL transcriber on the machine, without JAX: the 48 keys of
+    torch_nl_corpus_ref.json transcribed by tools/torch_to_nl.py (tracing
+    and checks on the CPU, as transcription is host work) into a temporary
+    directory; each file read with the port's read_nl and its f and c on
+    `device` at the fixture's four points held within NL_CORPUS_F_RTOL of
+    uno_tpu's reading of the committed file (relative to max(1, |v|)); each
+    solved with ipopt on `device` by `jobs` worker processes (started
+    first, so that they warm up while the keys are transcribed), held to
+    uno_tpu's status, iterations and objective (NL_CORPUS_OBJ_RTOL; a key
+    of NL_CORPUS_PARTS: its solved verdict).  Counts the transcripts whose
+    sha256 is the committed file's."""
+    import hashlib
+    import importlib.util
+    import multiprocessing as mp
+
+    import torch
+    from uno_tpu_torch.io import read_nl
+    with open(ref_path) as fh:
+        ref = json.load(fh)
+    keys = ref["keys"]
+    spec = importlib.util.spec_from_file_location(
+        "torch_to_nl", Path(__file__).resolve().parent / "tools" / "torch_to_nl.py")
+    t2n = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t2n)
+    t_start = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="nl_corpus_")
+    # the workers start (and warm up on hs015) while this process transcribes
+    pool = mp.get_context("spawn").Pool(jobs, initializer=_registry_worker,
+                                        initargs=(device,))
+    try:
+        manifest = t2n.transcribe(keys, tmp, resume=False, log=None)
+        t_transcribe = time.monotonic() - t_start
+        bad = {k: v for k, v in manifest["problems"].items() if v["status"] != "ok"}
+        if bad:
+            raise AssertionError(f"nl_corpus: not transcribed: {bad}")
+        paths = {k: Path(tmp) / f"{k}.nl" for k in keys}
+        same_sha = [k for k in keys if hashlib.sha256(paths[k].read_bytes()).hexdigest()
+                    == ref["rows"][k]["sha256"]]
+        gaps = {}
+        for k in keys:
+            r = ref["rows"][k]
+            nlp = read_nl(paths[k])
+            x = torch.tensor(r["points"], dtype=torch.float64, device=device)
+            f = nlp.objective(x).cpu().numpy()
+            c = nlp.constraints(x).cpu().numpy()
+            gaps[k] = max(_rel_gap(f, r["f"]), _rel_gap(c, np.reshape(r["c"], c.shape)))
+        t_values = time.monotonic() - t_start - t_transcribe
+        rows, largest = {}, {}
+        totals = {"launches_by_route": {}, "calls_by_route": {}}
+        for k, row, counts in pool.imap_unordered(
+                _nl_corpus_solve, [(k, str(paths[k]), device) for k in keys]):
+            rows[k] = row
+            for key, total in totals.items():
+                for route, v in counts[key].items():
+                    total[route] = total.get(route, 0) + v
+            for route, shape in counts["largest_by_route"].items():
+                old = largest.get(route)
+                if old is None or (shape[1], shape[0]) > (old[1], old[0]):
+                    largest[route] = shape
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.monotonic() - t_start
+    mismatched, allowed = [], []
+    for k in keys:
+        row, r = rows[k], ref["rows"][k]
+        same = ((row["status"], row["iterations"]) == (r["status"], r["iterations"])
+                and abs(row["objective"] - r["objective"])
+                <= NL_CORPUS_OBJ_RTOL * max(1.0, abs(r["objective"])))
+        if not same:
+            entry = {"key": k, "status": row["status"], "iterations": row["iterations"],
+                     "objective": row["objective"],
+                     "uno_tpu": [r["status"], r["iterations"], r["objective"]]}
+            if k in NL_CORPUS_PARTS and row["status"] == r["status"]:
+                allowed.append(entry | {"parts": NL_CORPUS_PARTS[k]})
+            else:
+                mismatched.append(entry)
+    out = {"keys": len(keys), "jobs": jobs, "transcribe_s": t_transcribe,
+           "values_s": t_values, "wall_s": wall,
+           "sha256_equal": len(same_sha), "sha256_differ": sorted(set(keys) - set(same_sha)),
+           "max_value_gap": max(gaps.values()),
+           "status_equal": sum(rows[k]["status"] == ref["rows"][k]["status"] for k in keys),
+           "iterations_equal": sum(rows[k]["iterations"] == ref["rows"][k]["iterations"]
+                                   for k in keys),
+           "mismatched": mismatched, "allowed_parts": allowed,
+           "solve_s": sum(r["wall_s"] for r in rows.values()),
+           "iterations": sum(r["iterations"] for r in rows.values()),
+           "launches": sum(totals["launches_by_route"].values()), **totals,
+           "largest_by_route": largest, "rows": rows}
+    print(json.dumps({k: v for k, v in out.items() if k != "rows"}), flush=True)
+    far = {k: g for k, g in gaps.items() if not g <= NL_CORPUS_F_RTOL}
+    if far:
+        raise AssertionError(f"nl_corpus: f or c beyond {NL_CORPUS_F_RTOL}: {far}")
+    if mismatched:
+        raise AssertionError(f"nl_corpus: {len(mismatched)} keys part from uno_tpu: "
+                             f"{mismatched}")
+    if device != "cpu" and out["launches_by_route"].get("ldlt_warp", 0) <= 0:
+        raise AssertionError("the nl_corpus path launched ldlt_warp 0 times")
     return out
 
 
@@ -2667,6 +2858,7 @@ def main(argv=None):
     byrd_single = run_phase("byrd_single", phase_byrd_single)
     nl = run_phase("nl", phase_nl)
     registry = run_phase("registry", phase_registry)
+    nl_corpus = run_phase("nl_corpus", phase_nl_corpus)
     structured_kernels = run_phase("structured_kernels", phase_structured_kernels)
     banded_path = run_phase("banded", phase_banded)
     lifted = run_phase("lifted", phase_lifted)
@@ -2728,6 +2920,8 @@ def main(argv=None):
     # the registry tier's solves at the largest shape each route was given
     registry_rows = {route: check_kernel(*shape, seed=21) for route, shape
                      in registry["largest_by_route"].items()}
+    nl_corpus_rows = {route: check_kernel(*shape, seed=22) for route, shape
+                      in nl_corpus["largest_by_route"].items()}
     # slice 4: the Schur path's S_0 (dim 256, float64; its blocks are the
     # sweep's (2048, 64) float64 row) and the structured path's scenario
     # blocks (dim 4, float64)
@@ -2780,6 +2974,9 @@ def main(argv=None):
                      "ldlt_warp", nl_cli_row),
         *(kernel_entry(f"{route} (registry path, n + m <= 30, ipopt)", SINGLE,
                        registry, route, row) for route, row in registry_rows.items()),
+        *(kernel_entry(f"{route} (nl_corpus path, torch_to_nl transcripts, ipopt)",
+                       SINGLE, nl_corpus, route, row)
+          for route, row in nl_corpus_rows.items()),
         kernel_entry("ldlt_panel (banded path, lukvle1 n=4096 initial multipliers)",
                      SINGLE, banded_path["lukvle1"], "ldlt_panel",
                      row_of(large, 1, STRUCT_INIT_DIM, "float64")),
@@ -2822,6 +3019,7 @@ def main(argv=None):
                        "single_large": single_large, "sqp_batch": sqp_batch,
                        "sqp_single": sqp_single, "byrd_batch": byrd_batch,
                        "byrd_single": byrd_single, "nl": nl, "registry": registry,
+                       "nl_corpus": nl_corpus,
                        "structured_kernels": structured_kernels,
                        "banded": banded_path, "lifted": lifted, "sparse": sparse,
                        "ipm_mixes": ipm_mixes, "sqp_host": sqp_host,
@@ -2834,7 +3032,8 @@ def main(argv=None):
                                         steering_row, mix_row,
                                         *mix_single_rows.values(),
                                         *host_rows.values(),
-                                        *registry_rows.values(), schur_s0_row,
+                                        *registry_rows.values(),
+                                        *nl_corpus_rows.values(), schur_s0_row,
                                         structured_row],
                        "profile": profiled, "kernels": kernels,
                        "phase_seconds": phase_seconds, "total_s": total}, fh, indent=1)

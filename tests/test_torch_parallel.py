@@ -89,3 +89,25 @@ def test_dryrun_in_process():
                                        device="cpu")
     assert out["dist_iterations"] == int(single.iterations[0])
     assert np.max(np.abs(np.asarray(out["dist_x"]) - single.x[0])) <= X_ATOL
+
+
+def subgroup_worker(group):
+    """Each rank alone (a subgroup of one), then both ranks together, solve
+    the batch: tools/multicard_study.py's sharded_scaling and
+    tools/multiproc_world.py's node groups."""
+    from uno_tpu_torch.parallel import subgroup
+    nlp, x0, params = flagship(BATCH)
+    alone = [subgroup(group, [r]) for r in range(group.size)][group.rank]
+    both = subgroup(group, range(group.size))
+    res_alone = solve_batch_sharded(nlp, options(), x0, params, alone)
+    res_both = solve_batch_sharded(nlp, options(), x0, params, both)
+    return {"alone": (alone.rank, alone.size), "both": (both.rank, both.size),
+            "x_alone": res_alone.x, "x_both": res_both.x}
+
+
+def test_subgroups_solve_the_batch(plain_batch):
+    ranks = run_world(subgroup_worker, 2)
+    for rank, out in enumerate(ranks):
+        assert out["alone"] == (0, 1) and out["both"] == (rank, 2)
+        assert np.array_equal(out["x_alone"], plain_batch.x)
+        assert np.array_equal(out["x_both"], plain_batch.x)

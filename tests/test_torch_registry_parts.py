@@ -2,10 +2,11 @@
 whose runs may part from uno_tpu's recorded ones: on the CPU, uno_tpu's
 own ipopt run parts from itself when x0 moves by one ulp (np.nextafter
 toward +inf), its x leaving the unmoved run's by more than 1e-8, as the
-port's does; hs009, whose x0 is 0, moved by 1e-16; and hs061's
-least-squares system, exactly singular at x0, whose last pivot XLA's fused
-multiply-add makes -8.9e-16 where the port, and the formula evaluated a
-rounding at a time, make 0."""
+port's does; hs009, whose x0 is 0, moved by 1e-16.  hs061, which parted
+while the port rounded the product of each LDL^T update before its
+subtraction, is here as the witness that it no longer does: its
+least-squares system, exactly singular at x0, keeps the last pivot
+-8.9e-16 under the fused multiply-add in both packages."""
 
 import dataclasses
 
@@ -32,7 +33,23 @@ def _xs(res, n):
 
 
 def test_the_table_has_these_witnesses():
-    assert sorted(chip_smoke.REGISTRY_PARTS) == sorted(ROUNDING + ("hs009", "hs061"))
+    assert sorted(chip_smoke.REGISTRY_PARTS) == sorted(ROUNDING + ("hs009",))
+    assert sorted(chip_smoke.REGISTRY_VERDICT_PARTS) == ["meyer"]
+
+
+def test_meyer_verdict_parts_by_rounding():
+    """meyer's status is rounding's choice in uno_tpu itself: from x0 it
+    ends algorithmic_error in 197 iterations, from x0 with x0[1] moved up
+    by one ulp optimal in 194, at the same objective within 1e-11."""
+    nlp = j_lib.get_problem("meyer")
+    x0 = np.asarray(nlp.x0, dtype=np.float64).copy()
+    ref = uno_tpu.solve(nlp, preset="ipopt", max_iterations=2000)
+    x0[1] = np.nextafter(x0[1], np.inf)
+    moved = uno_tpu.solve(dataclasses.replace(nlp, x0=x0), preset="ipopt",
+                          max_iterations=2000)
+    assert (ref.status, ref.iterations) == ("algorithmic_error", 197)
+    assert (moved.status, moved.iterations) == ("optimal", 194)
+    assert abs(moved.objective - ref.objective) <= 1e-11 * abs(ref.objective)
 
 
 @pytest.mark.parametrize("name", ROUNDING)
@@ -59,22 +76,24 @@ def test_hs009_ends_where_the_port_does_from_a_moved_x0():
 
 def test_hs061_least_squares_pivot():
     """[I J^T; J 0] at x0 = 0, J = [[3, 0, 0], [4, 0, 0]] of rank 1: the
-    last pivot -16 + 9 (4/3)^2 is 0 with each product rounded, as the
-    port's plain version and numpy compute it; XLA fuses the update into
-    one multiply-add and keeps -8.9e-16, so uno_tpu counts no zero pivot
-    and keeps the multipliers (0, -8.25), which the port rejects for 0."""
+    last pivot -16 + 9 (4/3)^2 is 0 with each product rounded, as numpy
+    computes it; XLA fuses the update into one multiply-add and keeps
+    -8.9e-16, and so does the port's plain version (torch.addcmul), so both
+    count no zero pivot, both solves' fused dot chains give the multipliers
+    (0, -8.25), and both runs end optimal in 18 iterations."""
     J = np.array([[3.0, 0.0, 0.0], [4.0, 0.0, 0.0]])
     K = np.block([[np.eye(3), J.T], [J, np.zeros((2, 2))]])
     jf = jax.jit(j_unrolled)(jnp.asarray(K))
     tf = t_unrolled(torch.as_tensor(K)[None])
     l = 4.0 / 3.0
     assert -16.0 - (-9.0) * (l * l) == 0.0
-    assert -1e-15 < float(jf.d[-1]) < 0.0 and int(jf.num_zero) == 0
-    assert (float(tf.d[0, -1]), int(tf.num_zero[0])) == (0.0, 1)
+    assert float(jf.d[-1]) == float(tf.d[0, -1]) == -8.881784197001252e-16
+    assert int(jf.num_zero) == int(tf.num_zero[0]) == 0
     ref = uno_tpu.solve(j_lib.get_problem("hs061"), preset="ipopt", history=True)
     port = uno_tpu_torch.solve(t_lib.get_problem("hs061"), preset="ipopt",
                                device="cpu", history=True)
     np.testing.assert_array_equal(np.asarray(ref.history[0].y), [0.0, -8.25])
-    assert not port.history[0].y.any()
+    np.testing.assert_array_equal(port.history[0].y[0].numpy(), [0.0, -8.25])
     assert (ref.status, ref.iterations, port.status, port.iterations) \
-        == ("optimal", 18, "optimal", 9)
+        == ("optimal", 18, "optimal", 18)
+    assert abs(port.objective - ref.objective) <= 1e-8 * abs(ref.objective)

@@ -80,14 +80,15 @@ def test_registry_reference_covers_the_small_tier():
 
 
 def test_cliff_filtersqp_parts_from_uno_tpu_at_iteration_7():
-    """The sweep's one SQP key that uno_tpu solves and the port does not
-    for a reason other than the time limit (ROADMAP.md queue 3): cliff
-    under filtersqp.  The two runs are equal bit for bit while the trust
-    region halves from 10 to 0.15625; at that radius uno_tpu accepts the
-    step (f 4.85e8 -> 1.78e8) and the port rejects it (its trust-region QP
-    has curvature 1.9e11 across the cliff and 2e-4 along it).  uno_tpu's
-    own run takes 34 iterations from x0 and 622 from x0 moved by one
-    ulp."""
+    """cliff under filtersqp, which parted from uno_tpu at iteration 7
+    while the port's QP formed its products H d with a library matrix
+    product: at radius 0.15625 the trust-region QP's residual g + H d - z,
+    terms of 1e10 (curvature 1.9e11 across the cliff), cancels below the
+    QP's tolerance 1e-10 only with XLA's chain of fused multiply-adds, so
+    the port's QP ran out of iterations and its step was rejected.  With
+    the chain (solvers/qp.py's _matvec) both runs take the step there,
+    stay equal bit for bit and end optimal in 34 iterations; uno_tpu's own
+    run takes 622 from x0 moved by one ulp."""
     import dataclasses
 
     import uno_tpu
@@ -95,14 +96,20 @@ def test_cliff_filtersqp_parts_from_uno_tpu_at_iteration_7():
     from uno_tpu.model import library as j_lib
 
     jn = j_lib.get_problem("cliff")
-    ref = uno_tpu.solve(jn, preset="filtersqp", max_iterations=8, history=True)
+    ref = uno_tpu.solve(jn, preset="filtersqp", max_iterations=2000, history=True)
     got = uno_tpu_torch.solve(get_problem("cliff"), preset="filtersqp", device="cpu",
-                              max_iterations=8, history=True)
-    for k in range(7):
+                              max_iterations=2000, history=True)
+    for k in range(9):
         assert np.array_equal(got.history[k].x[0].numpy(), np.asarray(ref.history[k].x))
-        assert float(got.history[k].radius[0]) == float(ref.history[k].radius) \
-            == 10.0 / 2 ** k
-    assert float(ref.history[7].f_cur) < 2e8 < float(got.history[7].f_cur)
+        assert float(got.history[k].radius[0]) == float(ref.history[k].radius)
+    for k in range(7):
+        assert float(ref.history[k].radius) == 10.0 / 2 ** k
+    # f itself may differ by an ulp: XLA contracts cliff's square too
+    f_ref, f_got = float(ref.history[7].f_cur), float(got.history[7].f_cur[0])
+    assert f_ref < 2e8 and abs(f_got - f_ref) <= 1e-15 * f_ref
+    assert (ref.status, ref.iterations, got.status, got.iterations) \
+        == ("optimal", 34, "optimal", 34)
+    assert abs(got.objective - ref.objective) <= 1e-8 * max(1.0, abs(ref.objective))
     moved = uno_tpu.solve(dataclasses.replace(jn, x0=np.nextafter(jn.x0, np.inf)),
                           preset="filtersqp", max_iterations=2000)
     assert (moved.status, moved.iterations) == ("optimal", 622)

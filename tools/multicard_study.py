@@ -24,7 +24,13 @@ Rank 0 prints one JSON object (and writes it to --out):
     over the factor and per panel step, with the factor's time between
     CUDA events and the share of it the card was idle;
   * dist_kkt: chip_smoke.py's dim-1280 instance with
-    ldlt_backend="distributed", its iterations and wall time.
+    ldlt_backend="distributed", its iterations and wall time;
+  * sharded_scaling: the flagship batch (chip_smoke.py's main path, n=8,
+    B=65,536, its options) through solve_batch_sharded on the first 1, 2,
+    4, ... ranks of the world (parallel.subgroup; the other ranks wait),
+    each warm, median of 3: solves per second and the efficiency against
+    one rank, tp(P) / (P tp(1)) (the batch axis of tools/bench_scaling.py;
+    its Schur axis is the `schur` study).
 Run it at one and at four ranks in the same call to compare them.
 `--package DIR` imports uno_tpu_torch from DIR instead (an earlier tree,
 e.g. `git archive <commit> uno_tpu_torch | tar -x -C DIR`), so that two
@@ -52,7 +58,7 @@ import uno_tpu_torch  # noqa: E402
 from uno_tpu_torch.linalg import cuda_ldlt  # noqa: E402
 from uno_tpu_torch.model.library import flagship  # noqa: E402
 from uno_tpu_torch.options import preset  # noqa: E402
-from uno_tpu_torch.parallel import make_group  # noqa: E402
+from uno_tpu_torch.parallel import make_group, solve_batch_sharded, subgroup  # noqa: E402
 from uno_tpu_torch.parallel.dist_ldlt import make_dist_ldlt  # noqa: E402
 from uno_tpu_torch.parallel.dryrun import dryrun  # noqa: E402
 from uno_tpu_torch.parallel.schur import (make_sharded_schur_solver,  # noqa: E402
@@ -60,7 +66,7 @@ from uno_tpu_torch.parallel.schur import (make_sharded_schur_solver,  # noqa: E4
                                           schur_solve)
 
 
-STUDIES = ("dryrun", "schur", "dist_ldlt", "dist_kkt")
+STUDIES = ("dryrun", "schur", "dist_ldlt", "dist_kkt", "sharded_scaling")
 
 
 def timed(group, fn, repeats=5):
@@ -208,6 +214,41 @@ def study_dist_kkt(group, n):
             "launches_by_route": dict(cuda_ldlt.launches)}
 
 
+def study_sharded_scaling(group, batch, repeats=3):
+    """The flagship batch on the first P ranks, P = 1, 2, 4, ... up to the
+    world: solves per second (the slowest member's warm seconds, median of
+    `repeats`) and the efficiency against one rank."""
+    opts = chip_smoke.main_path_options()
+    nlp, x0, params = flagship(batch)
+    rows = []
+    sizes = [p for p in (1, 2, 4, 8, 16) if p <= group.size and batch % p == 0]
+    for size in sizes:
+        sub = subgroup(group, range(size))
+        res = solve_batch_sharded(nlp, opts, x0, params, sub) if sub else None
+        times = []
+        for _ in range(repeats):
+            group.barrier()
+            if group.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if sub is not None:
+                res = solve_batch_sharded(nlp, opts, x0, params, sub)
+            if group.device.type == "cuda":
+                torch.cuda.synchronize()
+            t = torch.tensor([time.perf_counter() - t0 if sub else 0.0],
+                             dtype=torch.float64, device=group.device)
+            times.append(float(group.all_reduce(t, "max")[0]))
+        seconds = float(np.median(times))
+        solved = torch.tensor([res.num_solved if (sub and sub.rank == 0) else 0],
+                              device=group.device)
+        rows.append({"ranks": size, "batch": batch, "instances_per_rank": batch // size,
+                     "seconds": seconds, "times": times, "solves_per_s": batch / seconds,
+                     "solved": int(group.all_reduce(solved, "max")[0])})
+    for row in rows:
+        row["efficiency"] = row["solves_per_s"] / (row["ranks"] * rows[0]["solves_per_s"])
+    return rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
@@ -242,6 +283,9 @@ def main(argv=None):
                                 for n in ((256,) if small else (1280, 8192))]
         if "dist_kkt" in args.only:
             out["dist_kkt"] = study_dist_kkt(group, 60 if small else chip_smoke.LARGE_N)
+        if "sharded_scaling" in args.only:
+            out["sharded_scaling"] = study_sharded_scaling(
+                group, 16 if small else chip_smoke.MAIN_BATCH)
         if group.rank == 0:
             print(json.dumps(out), flush=True)
             if args.out:

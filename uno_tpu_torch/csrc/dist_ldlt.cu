@@ -14,13 +14,15 @@
 //   for jj = 0 .. BLOCK-1:   pr = row0 + jj
 //     dj  = C[pr, jj];   inv = 1 / safe(dj)
 //     l_i = i > pr ? C[i, jj] * inv : 0                  every row i
-//     C[i, k] = C[i, k] - dj * (l_i * l_{row0+k})       every row i, column k
+//     C[i, k] = fma(-dj, l_i * l_{row0+k}, C[i, k])      every row i, column k
 //     C[i, jj] = l_i;   d[jj] = dj
-// with correctly rounded operations and no contraction into fused
-// multiply-adds, so that it equals panel_factor_plain bit for bit.  The
-// multipliers of the panel's own rows, l_{row0+k}, are 0 for k <= jj, so
-// for those columns the update subtracts the one value dj * (l_i * 0)
-// (a zero, or NaN where dj or l_i is not finite), as the plain version does.
+// with correctly rounded operations, the product by dj fused into the
+// subtraction as XLA:CPU compiles _panel_factor's update (ldlt.cu's note),
+// so that it equals panel_factor_plain bit for bit.  The multipliers of the
+// panel's own rows, l_{row0+k}, are 0 for k <= jj, so for those columns
+// the update subtracts the one value dj * (l_i * 0) (a zero, or NaN where
+// dj or l_i is not finite: exact, so fused or not alike), as the plain
+// version does.
 //
 // Design: the pivots, their reciprocals and the panel's multipliers of
 // every column depend on the diagonal block's rows alone, and every other
@@ -221,7 +223,7 @@ __device__ __forceinline__ void column_loop(T (&r)[Share<T, BLOCK>::R], int q, i
         const int nidx = jc + 1 < SPAN ? (jc + 1) % V : V;
         if (jj + 1 < BLOCK && q == nlane)
           colv[(jc + 1) & 1][row] =
-              sub_rn(r[nidx], mul_rn(dj, mul_rn(li, mul_rn(col[jj + 1], inv))));
+              fma_rn(-dj, mul_rn(li, mul_rn(col[jj + 1], inv)), r[nidx]);
         finite = finite && isfinite(li) && isfinite(dj);
         if (row == 0 && q == 0) {
           dp[jj] = dj;
@@ -249,7 +251,7 @@ __device__ __forceinline__ void column_loop(T (&r)[Share<T, BLOCK>::R], int q, i
         load16(lcol + S::col(q, (U + p) % PER, 0), l);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
-          const T right = sub_rn(x[v], mul_rn(dj, mul_rn(li, l[v])));
+          const T right = fma_rn(-dj, mul_rn(li, l[v]), x[v]);
           if (p > 0) {
             x[v] = right;
           } else {

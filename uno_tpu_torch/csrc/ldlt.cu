@@ -38,11 +38,13 @@
 //
 // Arithmetic: the reference's, column by column (the plain versions are
 // uno_tpu_torch/linalg/ldlt.py's ldlt_factor / _unrolled / _blocked):
-//   dj = a_jj;  l = a_{>j,j} / safe(dj);  a_ik -= dj * (l_i * l_k)
+//   dj = a_jj;  l = a_{>j,j} / safe(dj);  a_ik = fma(-dj, l_i * l_k, a_ik)
 // with safe() the +-1e-35 clamp of _safe, in increasing column order, with
-// correctly rounded multiplies, subtractions and divisions (no contraction
-// into fused multiply-adds): ldlt_warp, ldlt_column and the panel
-// elimination of ldlt_panel repeat the plain versions' operations exactly.
+// correctly rounded multiplies and divisions, and the update's product by
+// dj fused into its subtraction, as XLA:CPU compiles uno_tpu's updates and
+// torch.addcmul computes the plain versions' (tools/xla_fma_census.py):
+// ldlt_warp, ldlt_column and the panel elimination of ldlt_panel repeat
+// the plain versions' operations exactly.
 // (ldlt_column and the row solves of ldlt_panel divide by Markstein's
 // correction of a correctly rounded reciprocal, which gives the correctly
 // rounded quotient.)  The trailing
@@ -126,7 +128,7 @@ __device__ __forceinline__ T factor_rows(T (&r)[G], int i, int dim, T* cb) {
           for (int u = 0; u < V; ++u) {
             const int k = q + u;
             if (k > j && (DIM == 0 || k < DIM))
-              r[k] = sub_rn(r[k], mul_rn(dj, mul_rn(lj, lk[u])));
+              r[k] = fma_rn(-dj, mul_rn(lj, lk[u]), r[k]);
           }
         }
       }
@@ -399,7 +401,7 @@ __global__ void __launch_bounds__(ROWS) ldlt_panel_kernel(const T* src, T* L, T*
         load16(piv + j0, pj);
 #pragma unroll
         for (int u = 0; u < V; ++u)
-          if (j0 + u < c) v = sub_rn(v, mul_rn(pj[u], mul_rn(x[j0 + u], dc[u])));
+          if (j0 + u < c) v = fma_rn(-pj[u], mul_rn(x[j0 + u], dc[u]), v);
       }
       x[c] = div_by(v, safe_pivot(piv[c]), rc[c]);
     }

@@ -8,8 +8,9 @@
 // Arithmetic: the column form's (uno_tpu_torch/linalg/ldlt.py's
 // ldlt_factor), bit for bit.  Each entry (i, k) of the lower triangle is
 // owned by one thread, which updates it once for every column j < k, in
-// increasing j, with a_ik - d_j * (l_i * l_k), each operation correctly
-// rounded and none contracted into a fused multiply-add; l_i = a_ij /
+// increasing j, with fma(-d_j, l_i * l_k, a_ik): the product of the
+// multipliers correctly rounded, the one by d_j fused into the subtraction,
+// as XLA:CPU compiles the column form (ldlt.cu's note); l_i = a_ij /
 // safe(d_j) is correctly rounded (Markstein's correction of a correctly
 // rounded reciprocal, ldlt_common.cuh's div_by_fast, and the division
 // itself where that path does not hold).  No tensor cores.  The
@@ -209,7 +210,7 @@ ldlt_column_kernel(const T* __restrict__ A, T* __restrict__ L, T* __restrict__ d
         for (int a = J; a < NA; ++a)
           if (Lay::slot(a, b)) {
             if (live)
-              r[a][b] = sub_rn(r[a][b], mul_rn(dj, mul_rn(lr[a], lc[b])));
+              r[a][b] = fma_rn(-dj, mul_rn(lr[a], lc[b]), r[a][b]);
             else if (own)
               r[a][b] = lr[a];
           }

@@ -1,7 +1,7 @@
 // Device arithmetic shared by the LDL^T kernels (ldlt.cu, ldlt_column.cu):
-// correctly rounded operations without contraction into fused
-// multiply-adds, the correctly rounded division by a pivot from its
-// reciprocal, the pivot clamp and NaN rule of the plain versions
+// correctly rounded operations, each fused multiply-add written out (the
+// compiler contracts nothing), the correctly rounded division by a pivot
+// from its reciprocal, the pivot clamp and NaN rule of the plain versions
 // (uno_tpu_torch/linalg/ldlt.py's _safe and _inertia), and 16-byte vector
 // accesses.
 

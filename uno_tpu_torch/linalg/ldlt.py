@@ -6,6 +6,11 @@ inertia counts (...,).  Unpivoted right-looking LDL^T; the surrounding
 primal-dual inertia correction repairs indefinite or singular pivots, and
 the inertia is read off the signs of D.
 
+Each rank-1 update a - dj * (l_i * l_k) rounds the product l_i * l_k and
+then takes one fused multiply-add, a + (-dj) * p rounded once, as XLA:CPU
+compiles uno_tpu's updates (tools/xla_fma_census.py reads its object code):
+torch.addcmul(a, -dj, p) is that multiply-add on the CPU and on CUDA.
+
 These are the plain versions of the CUDA kernel in linalg/cuda_ldlt.py: the
 solver uses them only for tensors on the CPU, and chip_smoke.py holds the
 kernel against them on the card.
@@ -67,7 +72,7 @@ def ldlt_factor(A: torch.Tensor, zero_pivot_rtol: float = 1e-32) -> LDLT:
         col = M[..., :, j]
         below = row_idx > j
         l = torch.where(below, col / _safe(dj)[..., None], 0.0)
-        M = M - dj[..., None, None] * (l[..., :, None] * l[..., None, :])
+        M = torch.addcmul(M, -dj[..., None, None], l[..., :, None] * l[..., None, :])
         M[..., :, j] = torch.where(below, l, col)
         M[..., j, j] = dj
     d = torch.diagonal(M, dim1=-2, dim2=-1).clone()
@@ -87,7 +92,8 @@ def ldlt_factor_unrolled(A: torch.Tensor, zero_pivot_rtol: float = 1e-32) -> LDL
         l = M[..., 1:, 0] / _safe(dj)[..., None]
         d[..., j] = dj
         L[..., j + 1:, j] = l
-        M = M[..., 1:, 1:] - dj[..., None, None] * (l[..., :, None] * l[..., None, :])
+        M = torch.addcmul(M[..., 1:, 1:], -dj[..., None, None],
+                          l[..., :, None] * l[..., None, :])
     L = L + torch.eye(n, dtype=A.dtype, device=A.device)
     return _finish(L, d, zero_pivot_rtol)
 
@@ -122,7 +128,7 @@ def ldlt_factor_blocked(A: torch.Tensor, block: int = 32,
             below = row_idx > j
             l = torch.where(below, col / _safe(dj)[..., None], 0.0)
             lpan = l[..., k0:k0 + block]
-            Pm = Pm - dj[..., None, None] * (l[..., :, None] * lpan[..., None, :])
+            Pm = torch.addcmul(Pm, -dj[..., None, None], l[..., :, None] * lpan[..., None, :])
             P[..., :, jj] = l
             dpan[..., jj] = dj
         M = M - (P * dpan[..., None, :]) @ P.transpose(-1, -2)
@@ -148,16 +154,31 @@ def ldlt_solve(fac: LDLT, rhs: torch.Tensor) -> torch.Tensor:
     """Solve A x = rhs for every instance, given A = L D L^T; rhs is (..., n).
 
     Small systems (n <= 32) use unrolled forward/backward substitution, as
-    uno_tpu does; larger ones torch.linalg.solve_triangular."""
+    uno_tpu does, z_i = rhs_i - dot(L_i, z) and x_i = z_i - dot(L[:, i], x)
+    over whole rows and columns, with each dot as XLA:CPU compiles a jitted
+    instance's: a chain of fused multiply-adds from +0 in increasing index
+    (tools/xla_fma_census.py).  The forward chains run a column at a time
+    over the rows below; a row's zero terms (k >= i) come last and only turn
+    a -0 into +0.  The backward chain of a column starts at its last-known
+    entry, so it runs an entry at a time.  Larger systems use
+    torch.linalg.solve_triangular."""
     n = rhs.shape[-1]
     if n <= 32:
-        z = torch.zeros_like(rhs)
-        for i in range(n):
-            z[..., i] = rhs[..., i] - torch.sum(fac.L[..., i, :] * z, dim=-1)
+        L = fac.L
+        acc = torch.zeros_like(rhs)
+        z = torch.empty_like(rhs)
+        for k in range(n):
+            z[..., k] = rhs[..., k] - (acc[..., k] + 0.0)
+            if k + 1 < n:
+                acc[..., k + 1:] = torch.addcmul(acc[..., k + 1:], L[..., k + 1:, k],
+                                                 z[..., k:k + 1])
         z = z / _safe(fac.d)
-        x = torch.zeros_like(rhs)
+        x = torch.empty_like(rhs)
         for i in range(n - 1, -1, -1):
-            x[..., i] = z[..., i] - torch.sum(fac.L[..., :, i] * x, dim=-1)
+            s = torch.zeros_like(rhs[..., i])
+            for k in range(i + 1, n):
+                s = torch.addcmul(s, L[..., k, i], x[..., k])
+            x[..., i] = z[..., i] - s
         return x
     z = torch.linalg.solve_triangular(fac.L, rhs[..., None], upper=False,
                                       unitriangular=True)

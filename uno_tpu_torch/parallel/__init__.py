@@ -6,10 +6,10 @@ behind ldlt_backend="distributed" (`make_dist_ldlt`), the Schur-complement
 KKT of block-arrow systems (`parallel.schur`) and the dry run
 (`parallel.dryrun`, also under torchrun)."""
 
-from uno_tpu_torch.parallel.group import Group, make_group
+from uno_tpu_torch.parallel.group import Group, make_group, subgroup
 from uno_tpu_torch.parallel.sharding import (build_sharded_batch_ipm,
                                              solve_batch_sharded)
 from uno_tpu_torch.parallel.dist_ldlt import cyclic_permutation, make_dist_ldlt
 
-__all__ = ["Group", "make_group", "build_sharded_batch_ipm", "solve_batch_sharded",
+__all__ = ["Group", "make_group", "subgroup", "build_sharded_batch_ipm", "solve_batch_sharded",
            "make_dist_ldlt", "cyclic_permutation"]

@@ -71,7 +71,8 @@ def panel_factor_plain(C: torch.Tensor, row0: int):
     whose pivots lie on rows row0 + jj.  Returns (the L panel, unit diagonal
     implied and zeros above it, the block's pivots).  The plain version of
     dist_panel, in its order: the reciprocal of the pivot, then both update
-    factors from the same column, dj * (l_col * l_pan)."""
+    factors from the same column, dj * (l_col * l_pan), taken off in one
+    fused multiply-add as XLA:CPU compiles it (linalg/ldlt.py)."""
     n, block = C.shape
     rows = torch.arange(n, device=C.device)
     C = C.clone()
@@ -82,7 +83,7 @@ def panel_factor_plain(C: torch.Tensor, row0: int):
         inv = torch.reciprocal(_safe(dj))
         l_col = torch.where(rows > pr, C[:, jj] * inv, 0.0)
         l_pan = l_col[row0:row0 + block]
-        C = C - dj * (l_col[:, None] * l_pan[None, :])
+        C = torch.addcmul(C, -dj, l_col[:, None] * l_pan[None, :])
         C[:, jj] = l_col
         d[jj] = dj
     return C, d

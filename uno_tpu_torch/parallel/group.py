@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -30,21 +31,25 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 @dataclass(frozen=True)
 class Group:
-    """The default process group as this rank sees it: its rank, the world
-    size, the device its tensors live on and the backend."""
+    """A process group as this rank sees it: its rank, the group's size,
+    the device its tensors live on and the backend; `pg` is a subgroup's
+    handle (subgroup()), None for the default group."""
     rank: int
     size: int
     device: torch.device
     backend: str
+    pg: Any = None
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """t reduced over the ranks (in place), returned."""
-        dist.all_reduce(t, op=_OPS[op])
+        dist.all_reduce(t, op=_OPS[op], group=self.pg)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Rank src's t on every rank (in place), returned."""
-        dist.broadcast(t, src=src)
+        if self.pg is not None:
+            src = dist.get_global_rank(self.pg, src)
+        dist.broadcast(t, src=src, group=self.pg)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -52,8 +57,11 @@ class Group:
         gives a tensor of the same shape."""
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=self.pg)
         return torch.cat(parts, dim=0)
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.pg)
 
     def local_range(self, total: int) -> tuple[int, int]:
         """This rank's contiguous run [start, stop) of `total` items, as a
@@ -98,3 +106,16 @@ def make_group(device="cuda") -> Group:
     # a first collective, so that a backend that cannot run fails here
     group.all_reduce(torch.zeros(1, device=dev))
     return group
+
+
+def subgroup(group: Group, ranks) -> Group | None:
+    """The ranks `ranks` of the default group (in that order) as a Group of
+    their own, e.g. the first k ranks to time the same work on fewer cards.
+    Every rank of the default group must call it, for every subgroup and in
+    the same order (torch.distributed.new_group's rule); a rank outside
+    `ranks` gets None."""
+    ranks = [int(r) for r in ranks]
+    pg = dist.new_group(ranks=ranks, backend=group.backend)
+    if group.rank not in ranks:
+        return None
+    return Group(ranks.index(group.rank), len(ranks), group.device, group.backend, pg)

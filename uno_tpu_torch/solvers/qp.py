@@ -32,7 +32,8 @@ from uno_tpu_torch.ingredients.regularization import regularize_and_factor
 from uno_tpu_torch.linalg import cuda_ldlt
 from uno_tpu_torch.linalg.ldlt import ldlt_solve
 from uno_tpu_torch.options import Options
-from uno_tpu_torch.solvers.ipm import _matvec, _max0, _rmatvec, _where
+from uno_tpu_torch.solvers.ipm import _max0, _where
+from uno_tpu_torch.solvers.ipm import _matvec as _library_matvec
 
 QP_OPTIMAL = 0
 QP_INFEASIBLE = 1
@@ -50,6 +51,26 @@ counts = {"solves": 0, "instances": 0, "iterations": 0}
 
 def reset_counts() -> None:
     counts.update(dict.fromkeys(counts, 0))
+
+
+def _matvec(A, x):
+    """A @ x for each instance as XLA:CPU computes uno_tpu's jitted QP at
+    its sizes (tools/xla_fma_census.py): each row a chain of fused
+    multiply-adds from +0 over the columns in increasing order, which
+    torch.addcmul gives on the CPU and on CUDA.  The chain decides whether
+    a residual of terms of 1e10 cancels to below the QP's tolerance (cliff
+    under filtersqp).  Above 32 columns, one batched matrix product."""
+    if A.shape[-1] > 32:
+        return _library_matvec(A, x)
+    acc = A.new_zeros(A.shape[:-1])
+    for k in range(A.shape[-1]):
+        acc = torch.addcmul(acc, A[..., :, k], x[..., k:k + 1])
+    return acc
+
+
+def _rmatvec(A, y):
+    """A^T y for each instance, as _matvec."""
+    return _matvec(A.transpose(-1, -2), y)
 
 
 class QPResult(NamedTuple):
